@@ -1,0 +1,5 @@
+from repro_torch.kernels.flash_attention.kernel import LAUNCHES
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+__all__ = ["LAUNCHES", "attention_ref", "flash_attention"]
