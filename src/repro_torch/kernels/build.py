@@ -29,6 +29,7 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 # kernel name -> its CUDA source, relative to repro_torch/kernels/
 SOURCES = {
     "flash_attention": "flash_attention/csrc/flash_attention_fwd.cu",
+    "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "paged_chunk_attention":
         "paged_chunk_attention/csrc/paged_chunk_attention.cu",
 }

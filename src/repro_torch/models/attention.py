@@ -3,7 +3,7 @@
 
 Cores dispatch under ``cfg.attn_impl`` ("auto" | "ref"):
 on CUDA tensors "auto" runs the hand-written kernels —
-``kernels.flash_attention`` for fresh prefill, ``kernels.
+``kernels.flash_attention`` for training and fresh prefill, ``kernels.
 paged_chunk_attention`` for every other chunk (paged pools, and dense
 caches viewed as one block per sequence) — and on CPU tensors their
 plain versions.
@@ -133,9 +133,12 @@ def _impl(cfg, impl):
 
 
 def attention_core(cfg, q, k, v, *, causal=True, q_offset=0, impl=None):
-    """The prefill softmax core over the chunk itself: q (b,s,h,hd),
-    k/v (b,s,kv,hd) -> (b,s,h,hd) through ``kernels.flash_attention``
-    (GQA folded into the kernel; the plain version on CPU tensors)."""
+    """The training / prefill softmax core over the chunk itself: q
+    (b,s,h,hd), k/v (b,s,kv,hd) -> (b,s,h,hd) through
+    ``kernels.flash_attention`` (GQA folded into the kernels; the plain
+    versions on CPU tensors), differentiable.  The transposes are views:
+    the kernels read q, k, v and write o in this (b, s, h, hd) memory
+    through strides, and the backward's dq, dk, dv come back in it."""
     from repro_torch.kernels.flash_attention import flash_attention
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal,

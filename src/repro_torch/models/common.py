@@ -1,5 +1,5 @@
-"""Shared model building blocks: norms, activations, RoPE (port of
-``repro/models/common.py``)."""
+"""Shared model building blocks: norms, activations, RoPE, the loss
+(port of ``repro/models/common.py``)."""
 from __future__ import annotations
 
 import torch
@@ -89,3 +89,20 @@ def apply_rope(x, cos, sin):
     sin = sin.to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+# ------------------------------ loss ---------------------------------------
+
+
+def cross_entropy(logits, labels, mask=None):
+    """logits (..., V), cast to fp32; labels (...); mask (...) optional.
+    Mean NLL: logsumexp minus the label's logit, averaged over the
+    tokens (over the masked-in tokens with ``mask``)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

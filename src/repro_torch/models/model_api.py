@@ -1,7 +1,8 @@
-"""Chunk-oriented model API (port of ``repro/models/model_api.py``),
-dense decoder-only family.
+"""Model API (port of ``repro/models/model_api.py``), dense decoder-only
+family.
 
-  init_seq_state(params, max_len, ...) -> SeqState
+  loss(params, batch) -> (loss, {"ce", "aux_loss"})      training
+  init_seq_state(params, max_len, ...) -> SeqState        serving
   forward(params, state, tokens, positions) -> (SeqState, logits)
 
 ``tokens`` is (b, T) for any T >= 1 (prompt, prefill chunk or decode
@@ -21,10 +22,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as attn
-from repro_torch.models.common import apply_norm, norm_defs
+from repro_torch.models.common import apply_norm, cross_entropy, norm_defs
 from repro_torch.models.params import init_tree, p
-from repro_torch.models.transformer import (_sub, chunk_layer, layer_defs,
-                                            layer_slice, paged_chunk_layer,
+from repro_torch.models.transformer import (_sub, chunk_layer, dense_layer,
+                                            layer_defs, layer_slice,
+                                            paged_chunk_layer, scan_layers,
                                             stack_defs)
 
 
@@ -84,6 +86,9 @@ class BaseLM:
             return self._logits(params, x)
         return self._gather_logits(params, x, positions)
 
+    def _ce(self, params, x, labels, mask=None):
+        return cross_entropy(self._logits(params, x), labels, mask)
+
     def param_defs(self):
         raise NotImplementedError
 
@@ -105,6 +110,27 @@ class DecoderLM(BaseLM):
         defs = _embed_defs(self.cfg)
         defs["layers"] = stack_defs(layer_defs(self.cfg), self.cfg.n_layers)
         return defs
+
+    # ---- forward over stacked layers (training) ----
+
+    def _forward(self, params, x, remat=True):
+        cfg = self.cfg
+        x = scan_layers(lambda h, lp: dense_layer(cfg, lp, h, causal=True),
+                        x, params["layers"], remat=remat)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def _inputs(self, params, batch):
+        return self._embed(params, batch["tokens"])
+
+    def loss(self, params, batch, remat=True):
+        """batch {"tokens", "labels"[, "mask"]} (b, s) -> (ce + aux,
+        {"ce", "aux_loss"}); aux is a zero scalar for the dense family.
+        ``remat``: recompute each layer in the backward (see
+        ``scan_layers``)."""
+        x = self._inputs(params, batch)
+        x, aux = self._forward(params, x, remat=remat)
+        ce = self._ce(params, x, batch["labels"], batch.get("mask"))
+        return ce + aux, {"ce": ce, "aux_loss": aux}
 
     def init_seq_state(self, params, max_len, *, batch=None,
                        batch_size=None, dtype="bfloat16", device=None):

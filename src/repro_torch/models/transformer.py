@@ -1,13 +1,17 @@
-"""Dense decoder layers for the chunk-oriented serving forward (port of
-``repro/models/transformer.py``).
+"""Dense decoder layers for training and the chunk-oriented serving
+forward (port of ``repro/models/transformer.py``).
 
 Layers are stacked along a leading axis, as in the JAX parameter tree;
 where JAX runs ``lax.scan`` over that axis, the port loops over the
-stacked slices (``layer_slice``).  Weights are used in whatever dtype
-they were loaded in (cast once at load when serving at full width);
-``.to(x.dtype)`` is a no-op then and casts fp32 masters otherwise.
+stacked slices (``layer_slice``, ``scan_layers``).  Weights are used in
+whatever dtype they were loaded in (cast once at load when serving at
+full width); ``.to(x.dtype)`` is a no-op then and casts fp32 masters
+otherwise.
 """
 from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (activate, apply_norm, is_gated,
@@ -64,6 +68,16 @@ def layer_slice(stacked: dict, i: int) -> dict:
     return {k: v[i] for k, v in stacked.items()}
 
 
+def dense_layer(cfg, lp, x, *, causal=True, positions=None):
+    """Pre-norm transformer layer over a whole sequence. x (b, s, d)."""
+    h = apply_norm(cfg, _sub(lp, "ln1_"), x, name="norm")
+    q, k, v = attn.project_qkv(cfg, _sub(lp, "attn_"), h, positions=positions)
+    o = attn.attention_core(cfg, q, k, v, causal=causal)
+    x = x + attn.out_proj(cfg, _sub(lp, "attn_"), o)
+    h = apply_norm(cfg, _sub(lp, "ln2_"), x, name="norm")
+    return x + apply_mlp(cfg, lp, h, prefix="mlp_")
+
+
 def paged_chunk_layer(cfg, lp, x, k_pool, v_pool, block_tables, positions,
                       slots, *, k_scale=None, v_scale=None):
     """One layer of a chunk (T >= 1 tokens) against a block-paged pool:
@@ -105,3 +119,22 @@ def chunk_layer(cfg, lp, x, ck, cv, positions, *, fresh=False):
 def stack_defs(defs: dict, n: int) -> dict:
     return tree_map(lambda d: p((n, *d.shape), ("layers", *d.axes), d.init,
                                 d.scale, d.dtype), defs)
+
+
+def scan_layers(fn, x, stacked, *, remat=True):
+    """Run ``fn(x, layer_params) -> x`` over stacked layers, a Python loop
+    where JAX runs ``lax.scan``.  With ``remat`` (and gradients on) each
+    layer runs under ``torch.utils.checkpoint`` — the JAX per-layer
+    ``jax.checkpoint``: only each layer's input is kept, and the backward
+    recomputes the layer.  The stacked leaves are split with ``unbind``,
+    whose backward stacks the per-layer gradients in one copy (indexing
+    layer by layer would add a zero-filled full-depth tensor per layer)."""
+    layers = {k: v.unbind(0) for k, v in stacked.items()}
+    depth = len(next(iter(layers.values())))
+    for i in range(depth):
+        lp = {k: v[i] for k, v in layers.items()}
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(fn, x, lp, use_reentrant=False)
+        else:
+            x = fn(x, lp)
+    return x

@@ -1,11 +1,13 @@
-"""The port's three kernels: their plain PyTorch versions against the JAX
-package's plain paths on the CPU (fp32, <= 1e-5).
+"""The port's kernels: their plain PyTorch versions — forward and
+backward — against the JAX package's plain paths on the CPU (fp32,
+<= 1e-5), and the rmsnorm and flash-attention ``autograd.Function``s
+on CPU tensors against torch autograd of the plain forwards.
 
 The JAX side runs its jnp references only (``rmsnorm_ref``,
-``direct_attention``, ``paged_chunk_attention_ref``), never Pallas
-interpret mode.  Inputs are drawn with numpy and handed to both.  The
-kernels themselves are held against these plain versions on the card
-by tests/test_torch_cuda.py and chip_smoke.py."""
+``direct_attention``, ``paged_chunk_attention_ref``) and their JAX
+autodiff, never Pallas interpret mode.  Inputs are drawn with numpy and
+handed to both.  The kernels themselves are held against these plain
+versions on the card by tests/test_torch_cuda.py and chip_smoke.py."""
 import numpy as np
 import pytest
 
@@ -19,6 +21,18 @@ TOL = 1e-5
 
 def _np(shape):
     return RNG.standard_normal(shape).astype(np.float32)
+
+
+def _vjp(fn, args, cot):
+    """JAX autodiff of ``fn`` at ``args`` for cotangent ``cot``, as one
+    program compiled at XLA's optimisation level 0 (about half the
+    compile time on the CPU; the same fp32 arithmetic)."""
+    def grads(args, cot):
+        return jax.vjp(fn, *args)[1](cot)
+    opts = {"xla_backend_optimization_level": 0,
+            "xla_llvm_disable_expensive_passes": True}
+    comp = jax.jit(grads).lower(args, cot).compile(compiler_options=opts)
+    return [np.asarray(a) for a in comp(args, cot)]
 
 
 def _t(a):
@@ -37,6 +51,36 @@ def test_rmsnorm_plain_matches_jax(shape):
     got = rmsnorm(torch.from_numpy(x), torch.from_numpy(w))
     np.testing.assert_allclose(got.numpy(), np.asarray(jax.jit(jref)(x, w)),
                                atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("shape", [(5, 96), (2, 3, 128)])
+def test_rmsnorm_backward_plain_matches_autodiff(shape):
+    """rmsnorm_bwd_dx_ref / rmsnorm_bwd_dw_ref from the saved rstd against
+    JAX autodiff of rmsnorm_ref and torch autograd of the plain forward;
+    the RMSNorm Function on CPU tensors gives the same gradients, dx in
+    x's dtype and dw in w's."""
+    from repro.kernels.rmsnorm.ref import rmsnorm_ref as jref
+    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd_dw_ref,
+                                             rmsnorm_bwd_dx_ref,
+                                             rmsnorm_fwd_ref, rmsnorm_ref)
+    x, w, dy = _np(shape), _np(shape[-1:]), _np(shape)
+    jdx, jdw = _vjp(jref, (x, w), dy)
+    d = shape[-1]
+    tx, tw, tdy = (torch.from_numpy(a) for a in (x, w, dy))
+    _, rstd = rmsnorm_fwd_ref(tx.reshape(-1, d), tw)
+    dx = rmsnorm_bwd_dx_ref(tx.reshape(-1, d), tw, tdy.reshape(-1, d), rstd)
+    dw = rmsnorm_bwd_dw_ref(tx.reshape(-1, d), tdy.reshape(-1, d), rstd)
+    np.testing.assert_allclose(dx.reshape(shape).numpy(), jdx, atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(dw.numpy(), jdw, atol=TOL, rtol=TOL)
+    xg, wg = tx.clone().requires_grad_(), tw.clone().requires_grad_()
+    auto = torch.autograd.grad(rmsnorm_ref(xg, wg), (xg, wg), tdy)
+    fn = torch.autograd.grad(rmsnorm(xg, wg), (xg, wg), tdy)
+    for a, b in zip(auto, fn):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=TOL, rtol=TOL)
+    wb = tw.bfloat16().requires_grad_()
+    gx, gw = torch.autograd.grad(rmsnorm(xg, wb), (xg, wb), tdy)
+    assert gx.dtype == torch.float32 and gw.dtype == torch.bfloat16
 
 
 # ---------------------------- flash attention -------------------------------
@@ -76,6 +120,76 @@ def test_flash_plain_matches_direct_attention(sq, skv, q_offset, kv_len, h,
                    q_offset=q_offset, mask=mask)
     np.testing.assert_allclose(got2.numpy(), np.asarray(ref), atol=TOL,
                                rtol=TOL)
+
+
+@pytest.mark.parametrize("sq,skv,q_offset,kv_len,h,kvh", [
+    (16, 16, 0, 16, 6, 2),      # fresh causal prefill, group 3
+    (12, 40, 28, 40, 6, 2),     # ragged sq != skv, end-aligned, group 3
+    (8, 24, 5, 20, 4, 2),       # offset != skv - sq, kv_len < skv
+])
+def test_flash_backward_plain_matches_autodiff(sq, skv, q_offset, kv_len,
+                                               h, kvh):
+    """attention_bwd_ref (p recomputed from the saved lse, ds = p (dp -
+    delta) scale, the GQA group summed) against JAX autodiff of
+    direct_attention and torch autograd of the plain forward; the
+    FlashAttention Function on CPU tensors gives the same gradients."""
+    from repro.models.attention import direct_attention
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_fwd_ref,
+                                                     attention_ref,
+                                                     flash_attention)
+    b, d = 2, 32
+    q, k, v = _np((b, sq, h, d)), _np((b, skv, kvh, d)), _np((b, skv, kvh, d))
+    do = _np((b, sq, h, d))
+
+    def jfwd(q, k, v):
+        mask = (jnp.arange(skv) < kv_len)[None, None, None, :]
+        return direct_attention(q, jnp.repeat(k, h // kvh, axis=2),
+                                jnp.repeat(v, h // kvh, axis=2), causal=True,
+                                q_offset=q_offset, mask=mask)
+    jgrads = _vjp(jfwd, (q, k, v), do)
+    tq, tk, tv, tdo = (torch.from_numpy(a).transpose(1, 2)
+                       for a in (q, k, v, do))
+    kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len)
+    o, lse = attention_fwd_ref(tq, tk, tv, **kw)
+    delta = (o * tdo).sum(-1)
+    plain = attention_bwd_ref(tq, tk, tv, tdo, lse, delta, **kw)
+    for got, want in zip(plain, jgrads):
+        np.testing.assert_allclose(got.transpose(1, 2).numpy(), want,
+                                   atol=TOL, rtol=TOL)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    auto = torch.autograd.grad(attention_ref(*leaves, **kw), leaves, tdo)
+    fn = torch.autograd.grad(flash_attention(*leaves, **kw), leaves, tdo)
+    for a, c in zip(auto, fn):
+        np.testing.assert_allclose(c.numpy(), a.numpy(), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("name", ["rmsnorm", "flash_attention"])
+def test_ops_keep_residuals_only_for_gradients(monkeypatch, name):
+    """Where no input wants a gradient (serving), the op runs its forward
+    alone, outside the autograd Function: the forward that also returns
+    rstd / lse is not run, and the output matches the plain forward."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rmsnorm import ops as rops
+    mod, fwd, ref = {
+        "rmsnorm": (rops, "rmsnorm_fwd_ref", rops.rmsnorm_ref),
+        "flash_attention": (fops, "attention_fwd_ref",
+                            fops.attention_ref)}[name]
+    args = ((torch.from_numpy(_np((5, 32))), torch.from_numpy(_np((32,))))
+            if name == "rmsnorm" else
+            tuple(torch.from_numpy(_np((1, 2, 6, 16))) for _ in range(3)))
+    fn = getattr(mod, name)
+    with_residuals = getattr(mod, fwd)
+
+    def refused(*a, **kw):
+        raise AssertionError(f"{fwd} ran without a gradient to take")
+    monkeypatch.setattr(mod, fwd, refused)
+    y = fn(*args)
+    assert y.grad_fn is None
+    np.testing.assert_array_equal(y.numpy(), ref(*args).numpy())
+    monkeypatch.setattr(mod, fwd, with_residuals)
+    leaf = args[0].clone().requires_grad_()
+    assert fn(leaf, *args[1:]).grad_fn is not None
 
 
 def test_flash_plain_rows_without_keys_are_zero():

@@ -67,8 +67,10 @@ def no_cuda(monkeypatch):
 
 def test_entry_points_need_cuda_or_explicit_cpu(no_cuda):
     from repro_torch.configs.registry import smoke_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel import ParallelPlan, make_train_step
     from repro_torch.serving import ServingEngine
 
     model = build_model(smoke_config("phi4-mini-3.8b"))
@@ -81,6 +83,12 @@ def test_entry_points_need_cuda_or_explicit_cpu(no_cuda):
         ServingEngine(model, params)
     eng = ServingEngine(model, params, device="cpu", n_blocks=4)
     assert eng.cache.k.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "phi4-mini-3.8b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(ParallelPlan(), model, AdamW())
+    assert callable(make_train_step(ParallelPlan(), model, AdamW(),
+                                    device="cpu"))
 
 
 def test_unported_families_raise():
