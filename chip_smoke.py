@@ -48,6 +48,20 @@ Phases (any failure exits non-zero and prints no result line):
    kernel's launch counter zeroed before and > 0 after, step time,
    tokens/s, model FLOPs utilisation, peak memory, and one profiled
    step.
+5. MoE serving: qwen2-moe-a2.7b at full width (24 layers, random bf16
+   weights from seed 0) serves the same trace over its vocabulary, both
+   runs, every serving kernel (the top-k gating forward included)
+   launched; logits against the gating-only reference (gate_impl
+   "ref") and the whole plain path; one MoE layer at full width against
+   the plain route, with experts rolled by one as a planted fault.
+6. MoE training: qwen2-moe-a2.7b at full widths with 4 of its 24 layers
+   (capacity-limited dispatch): loss and gradients against the plain
+   path, the gating-only reference and the plain gating backward (with
+   planted gating-backward faults), then 8 AdamW steps as in 4.
+
+The kernel cases of phase 2 include both top-k gating kernels at the
+MoE shapes (qwen2-moe's decode, prefill and training rows, 64 experts
+top-6, 128 top-8, no renorm, tie rows) with planted faults.
 
 Every result is printed as one JSON object per line.  The last line is
 {"ok": true, "device": {...}}; the line before it lists every kernel's
@@ -86,6 +100,10 @@ TOL = {"rmsnorm": (1e-2, 1e-2), "flash_attention": (1e-2, 1e-2),
        # the forward kernels' residuals, which the backward kernels read
        # on the training path: both sides reduce in fp32 in another order
        "rmsnorm_rstd": (0.0, 1e-5),
+       # top-k gating, kernel vs plain function on the same fp32 logits:
+       # the same arithmetic (accurate expf, a divide by the row sum) with
+       # sums in another order; experts must be identical
+       "topk_gating": (1e-6, 0.0), "topk_gating_bwd": (1e-6, 1e-5),
        # the flash kernel sums P after rounding it to bf16 (its l is the
        # normaliser of the P that multiplies V), each term within 2^-9
        # relative, so its lse lies within log(1 + 2^-9) = 1.95e-3
@@ -105,6 +123,41 @@ TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd_dx", "rmsnorm_bwd_dw",
                  "flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq")
 KEY_TILE = 64      # keys per tile, BK in kernels/csrc/attn_tile.cuh
+
+# the MoE family: qwen2-moe-a2.7b serves at full width (24 layers) and
+# trains at full widths with its depth cut to MOE_TRAIN_LAYERS, so that
+# weights, fp32 masters, moments and gradients (~47 GB) fit one card
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_TRAIN_LAYERS = 4
+# gating only (gate_impl "auto" against "ref", every other kernel on):
+# the two routes' weights differ in fp32 ulps (softmax sums in another
+# order), which now and then rounds a bf16 combine weight the other way;
+# the served logits are bf16, so the gate counts bf16 ulps of the
+# largest logit (the first reading: 1 ulp, or bitwise equal), with
+# identical greedy tokens.  Training: the loss within 1e-5 relative
+MOE_GATE_LOGIT_ULPS = 2
+MOE_GATE_LOSS_TOL = 1e-5
+# the routed experts' and the router's gradient leaves, kernel path vs a
+# reference whose bf16 rounding differs: a rounding difference upstream
+# of a router flips near-tied expert choices and capacity ranks, and
+# one token changed in an expert queue of ~336 capacity-limited slots
+# moves that expert's gradient by ~sqrt(2 / 336) = 7.7 %.  The gate lies
+# between the first readings (5.0-6.5e-2) and the planted gating
+# backward faults (>= 0.32)
+MOE_ROUTED_GRAD_TOL = 0.2
+MOE_ROUTED_LEAVES = ("layers/moe_router", "layers/moe_e_gate",
+                     "layers/moe_e_up", "layers/moe_e_down")
+# the gating backward kernel in place, forward bitwise the same (kernel
+# forward in both, backward kernel vs plain backward): the router's
+# gradient within 1e-3 relative norm
+MOE_GATE_ROUTER_TOL = 1e-3
+# one MoE layer's routed experts at full width in bf16, gating kernel
+# route vs plain route on the same inputs: max |difference| over max |y|
+# (a weight rounded to the other bf16 neighbour moves its token's y by
+# <= 2^-8 relative); experts rolled by one must fail it
+MOE_LAYER_TOL = 1e-2
+# the MoE kernel path against the whole plain path end to end
+MOE_E2E_REL_TOL = E2E_REL_TOL
 
 KERNEL_META = {
     "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
@@ -129,8 +182,17 @@ KERNEL_META = {
         "cuda", "src/repro_torch/kernels/flash_attention/csrc/"
         "flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention/kernel.py:289"),
+    "topk_gating": ("cuda",
+                    "src/repro_torch/kernels/topk_gating/csrc/topk_gating.cu",
+                    "src/repro/kernels/topk_gating/kernel.py:50"),
+    "topk_gating_bwd": (
+        "cuda", "src/repro_torch/kernels/topk_gating/csrc/topk_gating.cu",
+        "src/repro/kernels/topk_gating/kernel.py:94"),
 }
-SERVING_KERNELS = ("rmsnorm", "flash_attention", "paged_chunk_attention")
+DENSE_SERVING_KERNELS = ("rmsnorm", "flash_attention",
+                         "paged_chunk_attention")
+SERVING_KERNELS = DENSE_SERVING_KERNELS + ("topk_gating",)
+MOE_TRAIN_KERNELS = TRAIN_KERNELS + ("topk_gating", "topk_gating_bwd")
 
 
 def card_line():
@@ -674,6 +736,156 @@ def kernel_phase(dev):
     return cases
 
 
+# ------------------------------ top-k gating --------------------------------
+
+
+def _gating_bwd_faulty(logits, experts, dw, renorm, fault):
+    """The plain top-k gating backward with one planted fault: "renorm
+    Jacobian dropped" (dwr = dw / S), "c term dropped" or "scattered to
+    index + 1" (dp lands on the next expert)."""
+    import torch
+    p = torch.softmax(logits.float(), dim=-1)
+    idx = experts.long()
+    wr = torch.gather(p, -1, idx)
+    S = torch.clamp(wr.sum(-1, keepdim=True), min=1e-9)
+    if not renorm:
+        dwr = dw
+    elif fault == "renorm Jacobian dropped":
+        dwr = dw / S
+    else:
+        dwr = (dw - (dw * wr / S).sum(-1, keepdim=True)) / S
+    if fault == "scattered to index + 1":
+        idx = (idx + 1) % p.shape[-1]
+    dp = torch.zeros_like(p).scatter_add_(-1, idx, dwr)
+    c = 0.0 if fault == "c term dropped" else \
+        (dwr * wr).sum(-1, keepdim=True)
+    return (p * (dp - c)).to(logits.dtype)
+
+
+def _gating_library(x, k, renorm=True):
+    """The nearest PyTorch composition: softmax -> topk -> divide."""
+    import torch
+    w, i = torch.topk(torch.softmax(x, dim=-1), k)
+    return (w / w.sum(-1, keepdim=True) if renorm else w), i
+
+
+def gating_verdict(w, e, ref_w, ref_e):
+    """Experts identical and weights within TOL["topk_gating"]."""
+    err, used, ok = compare("topk_gating", w, ref_w)
+    mism = int((e != ref_e).any(dim=-1).sum())
+    return {"max_abs_err": err, "tol_used": used,
+            "experts_mismatch_rows": mism, "ok": ok and mism == 0}
+
+
+def check_gating(dev, T, E, k, renorm=True, ties=0, seed=7):
+    """Forward and backward kernel against their plain versions on fp32
+    logits (T, E): experts identical, weights within 1e-6, dlogits within
+    (1e-6, 1e-5) of the plain backward and of autograd through the plain
+    forward.  ``ties`` > 0 makes that many rows all-equal (and the next
+    all-zero): their experts must be 0..k-1.  Planted faults, where the
+    input can show them: forward renorm skipped, ties broken to the
+    higher index (tie case), the last expert column ignored; backward
+    renorm Jacobian dropped, the c term dropped (renorm=False only: with
+    renorm, c = sum(dwr * wr) = 0 in exact arithmetic) and dlogits
+    scattered to index + 1."""
+    import torch
+    from repro_torch.kernels.topk_gating import (topk_gating,
+                                                 topk_gating_bwd_ref,
+                                                 topk_gating_fwd_ref,
+                                                 topk_gating_ref)
+    from repro_torch.kernels.topk_gating.kernel import topk_gating_bwd
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(T, E, device=dev, generator=g) * 2
+    if ties:
+        x[:ties] = 0.7
+        x[ties] = 0.0
+    dw = torch.randn(T, k, device=dev, generator=g)
+    w, e = topk_gating(x, k=k, renorm=renorm)
+    rw, re = topk_gating_fwd_ref(x, k, renorm)
+    fwd = gating_verdict(w, e, rw, re)
+    fwd["oracle"] = gating_verdict(w, e, *topk_gating_ref(x, k, renorm))
+    if ties:
+        want = torch.arange(k, device=dev, dtype=torch.int32)
+        fwd["tie_rows_ok"] = bool((e[:ties + 1] == want).all())
+        fwd["ok"] = fwd["ok"] and fwd["tie_rows_ok"]
+    faults = {"last expert column ignored": topk_gating_fwd_ref(
+        x[:, :-1].contiguous(), k, renorm)}
+    if renorm:
+        faults["renorm skipped"] = topk_gating_fwd_ref(x, k, False)
+    if ties:
+        # flipping the expert axis makes the first maximal index the
+        # highest original one
+        fw, fe = topk_gating_fwd_ref(x.flip(-1).contiguous(), k, renorm)
+        faults["ties broken to the higher index"] = (fw, E - 1 - fe)
+    fwd["controls"] = [{"fault": f, **gating_verdict(w, e, *r)}
+                       for f, r in faults.items()]
+    for c in fwd["controls"]:
+        c["caught"] = not c.pop("ok")
+
+    dl = topk_gating_bwd(x, e, dw, k, renorm)
+    err, used, ok = compare("topk_gating_bwd", dl,
+                            topk_gating_bwd_ref(x, e, dw, k, renorm))
+    xr = x.clone().requires_grad_()
+    auto = torch.autograd.grad(topk_gating_ref(xr, k, renorm)[0], xr, dw)[0]
+    a_err, a_used, a_ok = compare("topk_gating_bwd", dl, auto)
+    bfaults = ["scattered to index + 1"]
+    bfaults += ["renorm Jacobian dropped"] if renorm else ["c term dropped"]
+    bwd = {"max_abs_err": err, "tol_used": used, "ok": ok and a_ok,
+           "vs_autograd": {"max_abs_err": a_err, "tol_used": a_used,
+                           "ok": a_ok},
+           "controls": controls("topk_gating_bwd", dl, {
+               f: _gating_bwd_faulty(x, e, dw, renorm, f)
+               for f in bfaults})}
+    # bounds: the logits read, the outputs written, once each
+    f_bytes = T * E * 4 + T * k * 8
+    b_bytes = 2 * T * E * 4 + T * k * 8
+    case = f"T={T},E={E},k={k},renorm={renorm}" + (f",ties={ties}"
+                                                   if ties else "")
+    xl = x.clone().requires_grad_()
+    for rec, fn, plain, lib, (b_ms, b_by) in (
+            (fwd, lambda: topk_gating(x, k=k, renorm=renorm),
+             lambda: topk_gating_fwd_ref(x, k, renorm),
+             lambda: _gating_library(x, k, renorm),
+             bound(f_bytes, T * E * (4 + 2 * k), "fp32")),
+            (bwd, lambda: topk_gating_bwd(x, e, dw, k, renorm),
+             lambda: topk_gating_bwd_ref(x, e, dw, k, renorm), None,
+             bound(b_bytes, T * E * (6 + k), "fp32"))):
+        rec.update({"case": case, "ms": time_ms(fn), "host_ms": host_ms(fn),
+                    "plain_ms": time_ms(plain),
+                    "library_ms": (time_ms(lib) if lib else backward_ms(
+                        lambda: _gating_library(xl, k, renorm)[0], (xl,),
+                        dw)),
+                    "library_covers": (
+                        "torch.softmax -> torch.topk -> divide: no one "
+                        "PyTorch call computes this function" if lib else
+                        "autograd of torch.softmax -> torch.topk -> "
+                        "divide"),
+                    "bound_ms": b_ms, "bound_by": b_by})
+    return {"topk_gating": fwd, "topk_gating_bwd": bwd}
+
+
+# the first forward case is the decode tick, the first backward case the
+# training step (the rows the kernel summary reports)
+GATING_CASES = [dict(T=8, E=60, k=4), dict(T=4096, E=60, k=4),
+                dict(T=1024, E=60, k=4), dict(T=4096, E=64, k=6),
+                dict(T=4096, E=128, k=8),
+                dict(T=4096, E=60, k=4, renorm=False),
+                dict(T=1024, E=60, k=4, ties=3)]
+
+
+def gating_phase(dev):
+    """Both top-k gating kernels at the MoE path's shapes: qwen2-moe's
+    training step (4096 x 60, top-4), decode tick (8 rows) and prefill
+    bucket (1024), deepseekmoe-16b's (64 experts, top-6) and qwen3-moe's
+    (128, top-8) gating, one case without renorm and one with tie rows."""
+    cases = {"topk_gating": [], "topk_gating_bwd": []}
+    for kw in GATING_CASES:
+        for name, row in check_gating(dev, **kw).items():
+            cases[name].append(row)
+    cases["topk_gating_bwd"].insert(0, cases["topk_gating_bwd"].pop(1))
+    return cases
+
+
 # ------------------------------- end to end ---------------------------------
 
 
@@ -686,7 +898,11 @@ def request_set(vocab, seed=SEED):
     return prompts, arrivals
 
 
-def e2e_run(model, params, prompts, arrivals, dev, prefill_chunk, gen=32):
+def e2e_run(model, params, prompts, arrivals, dev, prefill_chunk, gen=32,
+            kernels=DENSE_SERVING_KERNELS):
+    """One serving run of the trace with the launch counters zeroed
+    before and read after; fails if a kernel of ``kernels`` never
+    launched."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import serve_paged
@@ -713,7 +929,7 @@ def e2e_run(model, params, prompts, arrivals, dev, prefill_chunk, gen=32):
     if any(len(t) != gen for t in res["tokens"]):
         raise AssertionError(f"wrong token counts: "
                              f"{[len(t) for t in res['tokens']]}")
-    dead = [k for k in SERVING_KERNELS if counts[k] <= 0]
+    dead = [k for k in kernels if counts[k] <= 0]
     if dead:
         raise AssertionError(f"kernels never launched on the serving path "
                              f"(prefill_chunk={prefill_chunk}): {dead}")
@@ -832,20 +1048,7 @@ def e2e_phase(dev):
                              prefill_chunk=chunk)
         ref = teacher_forced(plain, params, prompts, tokens, dev,
                              prefill_chunk=chunk)
-        for i, name in enumerate(["first_token"] +
-                                 [f"tick_{t}" for t in range(1, 5)]):
-            d = float((got[i] - ref[i]).abs().max())
-            scale = float(ref[i].abs().max())
-            agree = float((got[i].argmax(-1) == ref[i].argmax(-1))
-                          .float().mean())
-            cmp.append({"prefill_chunk": chunk, "logits": name,
-                        "max_abs_diff": d, "max_abs_plain": scale,
-                        "rel": d / scale,
-                        "tol_used": d / (E2E_REL_TOL * scale),
-                        "argmax_agree": agree,
-                        "finite": bool(torch.isfinite(got[i]).all()),
-                        "ok": d <= E2E_REL_TOL * scale
-                        and bool(torch.isfinite(got[i]).all())})
+        cmp += logit_rows(got, ref, E2E_REL_TOL, prefill_chunk=chunk)
         del got, ref
     for c in cmp:
         print(json.dumps({"e2e_vs_plain": c}), flush=True)
@@ -955,84 +1158,72 @@ def rel_by_leaf(got, ref, name=""):
     return {name[:-1]: (diff / max(norm, 1e-30)) ** 0.5}
 
 
-def train_phase(dev):
-    """phi4-mini-3.8b at full width trains on the card: random bf16
-    weights drawn on the card from SEED, synthetic batches of
-    TRAIN_BATCH x TRAIN_SEQ tokens.  First the kernel path and the plain
-    path (attn_impl / norm_impl "ref") take the loss and every gradient
-    of one batch, before any optimizer state exists, and so do the
-    kernel path's planted faults (``train_faults``); then AdamW
-    (warmup_cosine(3e-4, 2, 8), fp32 masters and moments) runs
-    TRAIN_STEPS steps through ``parallel.plan.make_train_step`` with the
-    launch counters zeroed before and read after, and one more step runs
-    under the profiler."""
+def with_patches(patches, fn):
+    """``fn()`` with each (module, name, replacement) of ``patches``
+    swapped in for the call."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, new in patches:
+        setattr(mod, name, new)
+    try:
+        return fn()
+    finally:
+        for mod, name, old in saved:
+            setattr(mod, name, old)
+
+
+def loss_grads_against(model, params, batch, ref_loss, ref_grads,
+                       patches=(), loss_tol=TRAIN_LOSS_REL_TOL,
+                       grad_tol=TRAIN_GRAD_REL_TOL, leaves=None,
+                       leaf_tol=None):
+    """The loss and every gradient of ``model`` on ``batch``, with the
+    ``patches`` [(module, name, replacement)] swapped in for the run,
+    against ``ref_loss`` / ``ref_grads``: the loss's relative difference
+    and per leaf |g - g_ref| / |g_ref|.  ``within``: the loss within
+    ``loss_tol`` and every leaf (or every leaf named in ``leaves``)
+    within ``grad_tol``, or within its own tolerance in ``leaf_tol``.
+    The worst leaf is the one that uses the most of its tolerance."""
+    from repro_torch.train_lib import loss_and_grads
+    lk, _, gk = with_patches(patches, lambda: loss_and_grads(model, params,
+                                                             batch))
+    rel = rel_by_leaf(gk, ref_grads)
+    del gk
+    tol = {k: (leaf_tol or {}).get(k, grad_tol) for k in rel
+           if leaves is None or k in leaves}
+    worst = max(tol, key=lambda k: rel[k] / tol[k])
+    lk = float(lk)
+    loss_rel = abs(lk - ref_loss) / abs(ref_loss)
+    return {"loss_kernel": lk, "loss_ref": ref_loss, "loss_rel": loss_rel,
+            "loss_rel_tol": loss_tol, "grad_rel": rel,
+            "grad_rel_max": rel[worst], "grad_rel_max_leaf": worst,
+            "grad_rel_tol": tol[worst],
+            "within": (loss_rel <= loss_tol and rel[worst] <= tol[worst]
+                       and math.isfinite(lk))}
+
+
+def fault_row(fault, gating, r):
+    row = {"fault": fault, "gating": gating, "caught": not r.pop("within"),
+           **{k: r[k] for k in ("loss_rel", "grad_rel_max",
+                                "grad_rel_max_leaf")}}
+    print(json.dumps({"train_fault": row}), flush=True)
+    return row
+
+
+def train_steps(model, params, cfg, dev, kernels, n_flop_params, label):
+    """AdamW (warmup_cosine(3e-4, 2, TRAIN_STEPS), fp32 masters and
+    moments) for TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ synthetic
+    tokens through ``parallel.plan.make_train_step``, the launch counters
+    zeroed before and read after, then one step under the profiler.
+    MFU counts 6 * n_flop_params * tokens + 12 * L * h * d * causal
+    pairs.  Returns (results, failures); frees the state."""
     import statistics
 
     import torch
-    from repro_torch.configs.registry import get_arch
-    from repro_torch.data.synthetic import batch_for_model
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models import build_model
-    from repro_torch.models.params import tree_leaves
     from repro_torch.optim import AdamW, warmup_cosine
     from repro_torch.parallel import ParallelPlan, init_state, \
         make_train_step
     from repro_torch.telemetry import now
-    from repro_torch.train_lib import loss_and_grads
-    cfg = get_arch(ARCH)
-    model = build_model(cfg)
-    params = model.init(SEED, device=dev, dtype="bfloat16")
-    n_params = sum(p.numel() for p in tree_leaves(params))
     B, S = TRAIN_BATCH, TRAIN_SEQ
-
-    def batch(i):
-        return {k: torch.as_tensor(v, device=dev) for k, v in
-                batch_for_model(cfg, "train", i, B, S, seed=SEED).items()}
-
-    # 1. kernel path against plain path on one batch, then the kernel
-    # path with each planted fault against the same plain path
-    plain = build_model(dataclasses.replace(cfg, attn_impl="ref",
-                                            norm_impl="ref"))
-    lp, _, gp = loss_and_grads(plain, params, batch(0))
-    lp = float(lp)
-
-    def against_plain(patches=()):
-        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
-        for mod, name, fn in patches:
-            setattr(mod, name, fn)
-        try:
-            lk, _, gk = loss_and_grads(model, params, batch(0))
-        finally:
-            for mod, name, fn in saved:
-                setattr(mod, name, fn)
-        rel = rel_by_leaf(gk, gp)
-        del gk
-        worst = max(rel, key=rel.get)
-        lk = float(lk)
-        loss_rel = abs(lk - lp) / abs(lp)
-        return {"loss_kernel": lk, "loss_plain": lp, "loss_rel": loss_rel,
-                "loss_rel_tol": TRAIN_LOSS_REL_TOL, "grad_rel": rel,
-                "grad_rel_max": rel[worst], "grad_rel_max_leaf": worst,
-                "grad_rel_tol": TRAIN_GRAD_REL_TOL,
-                "within": (loss_rel <= TRAIN_LOSS_REL_TOL
-                           and rel[worst] <= TRAIN_GRAD_REL_TOL
-                           and math.isfinite(lk))}
-    vs_plain = against_plain()
-    vs_plain["ok"] = vs_plain.pop("within") and math.isfinite(lp)
-    print(json.dumps({"train_vs_plain": vs_plain}), flush=True)
-    faults = []
-    for fault, (gating, patches) in train_faults().items():
-        r = against_plain(patches)
-        r = {"fault": fault, "gating": gating,
-             "caught": not r.pop("within"),
-             **{k: r[k] for k in ("loss_rel", "grad_rel_max",
-                                  "grad_rel_max_leaf")}}
-        faults.append(r)
-        print(json.dumps({"train_fault": r}), flush=True)
-    vs_plain["controls"] = faults
-    del gp
-
-    # 2. training
     opt = AdamW(lr=warmup_cosine(3e-4, 2, TRAIN_STEPS))
     plan = ParallelPlan(mode="gspmd")
     state = init_state(plan, opt, params)
@@ -1043,13 +1234,13 @@ def train_phase(dev):
     reset_launch_counts()
     losses, times = [], []
     for i in range(TRAIN_STEPS):
-        b = batch(i)
+        b = train_batch(cfg, dev, i)
         torch.cuda.synchronize()
         t0 = now()
         state, metrics = step(state, b)
         losses.append(float(metrics["loss"]))      # synchronises
         times.append(now() - t0)
-        print(json.dumps({"train_step": i, "loss": losses[-1],
+        print(json.dumps({f"{label}_step": i, "loss": losses[-1],
                           "seconds": times[-1]}), flush=True)
     torch.cuda.synchronize()
     counts = launch_counts()
@@ -1057,34 +1248,319 @@ def train_phase(dev):
     tokens = B * S
     med = statistics.median(times)
     pairs = B * causal_pairs(S, S, 0, S)
-    flops = 6 * n_params * tokens + \
+    flops = 6 * n_flop_params * tokens + \
         12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * pairs
-    prof = profiled(lambda: float(step(state, batch(TRAIN_STEPS))[1]["loss"]))
-    out = {"arch": ARCH, "params": n_params, "batch": B, "seq": S,
-           "steps": TRAIN_STEPS, "losses": losses, "step_s": times,
-           "median_step_s": med, "tokens_per_s": tokens / med,
-           "model_flops_per_step": flops,
+    prof = profiled(lambda: float(step(state, train_batch(
+        cfg, dev, TRAIN_STEPS))[1]["loss"]))
+    out = {"batch": B, "seq": S, "steps": TRAIN_STEPS, "losses": losses,
+           "step_s": times, "median_step_s": med,
+           "tokens_per_s": tokens / med, "model_flops_per_step": flops,
            "mfu_vs_bf16_dense_peak": flops / med / PEAK["bf16_tensor"],
            "peak_mem_gb": peak / 1e9, "launches": counts,
            "launches_per_step": {k: v / TRAIN_STEPS
                                  for k, v in counts.items()},
-           "vs_plain": vs_plain, "profile": prof}
+           "profile": prof}
     del state
     torch.cuda.empty_cache()
     failures = []
     if not all(math.isfinite(x) for x in losses):
-        failures.append(f"training losses not finite: {losses}")
+        failures.append(f"{label}: losses not finite: {losses}")
+    dead = [k for k in kernels if counts[k] <= 0]
+    if dead:
+        failures.append(f"{label}: kernels never launched on the training "
+                        f"path: {dead}")
+    return out, failures
+
+
+def train_batch(cfg, dev, i):
+    import torch
+    from repro_torch.data.synthetic import batch_for_model
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch_for_model(
+        cfg, "train", i, TRAIN_BATCH, TRAIN_SEQ, seed=SEED).items()}
+
+
+def train_phase(dev):
+    """phi4-mini-3.8b at full width trains on the card: random bf16
+    weights drawn on the card from SEED, synthetic batches of
+    TRAIN_BATCH x TRAIN_SEQ tokens.  First the kernel path and the plain
+    path (attn_impl / norm_impl "ref") take the loss and every gradient
+    of one batch, before any optimizer state exists, and so do the
+    kernel path's planted faults (``train_faults``); then
+    ``train_steps``."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train_lib import loss_and_grads
+    cfg = get_arch(ARCH)
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev, dtype="bfloat16")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    b0 = train_batch(cfg, dev, 0)
+
+    # 1. kernel path against plain path on one batch, then the kernel
+    # path with each planted fault against the same plain path
+    plain = build_model(dataclasses.replace(cfg, attn_impl="ref",
+                                            norm_impl="ref"))
+    lp, _, gp = loss_and_grads(plain, params, b0)
+    lp = float(lp)
+    vs_plain = loss_grads_against(model, params, b0, lp, gp)
+    vs_plain["ok"] = vs_plain.pop("within") and math.isfinite(lp)
+    print(json.dumps({"train_vs_plain": vs_plain}), flush=True)
+    vs_plain["controls"] = [
+        fault_row(fault, gating, loss_grads_against(model, params, b0, lp,
+                                                    gp, patches))
+        for fault, (gating, patches) in train_faults().items()]
+    del gp
+
+    # 2. training
+    out, failures = train_steps(model, params, cfg, dev, TRAIN_KERNELS,
+                                n_params, "train")
+    out = {"arch": ARCH, "params": n_params, **out, "vs_plain": vs_plain}
     if not vs_plain["ok"]:
         failures.append(f"training kernel vs plain: loss_rel "
                         f"{vs_plain['loss_rel']}, worst grad_rel "
                         f"{vs_plain['grad_rel_max']} "
                         f"({vs_plain['grad_rel_max_leaf']})")
     failures += [f"training: planted fault '{f['fault']}' passed the "
-                 f"gates" for f in faults if f["gating"] and not f["caught"]]
-    dead = [k for k in TRAIN_KERNELS if counts[k] <= 0]
-    if dead:
-        failures.append(f"kernels never launched on the training path: "
-                        f"{dead}")
+                 f"gates" for f in vs_plain["controls"]
+                 if f["gating"] and not f["caught"]]
+    return out, failures
+
+
+# ----------------------------------- MoE ------------------------------------
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 numbers at magnitude ``x`` > 0."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def logit_rows(got, ref, rel_tol=None, bf16_ulps=None, same_argmax=False,
+               **labels):
+    """One comparison row per logits set (first token, 4 decode ticks):
+    max |got - ref| against ``rel_tol`` times max |ref|, or against
+    ``bf16_ulps`` bf16 ulps of max |ref| (and, with ``same_argmax``,
+    every greedy token identical)."""
+    import torch
+    rows = []
+    for i, name in enumerate(["first_token"] +
+                             [f"tick_{t}" for t in range(1, len(got))]):
+        d = float((got[i] - ref[i]).abs().max())
+        scale = float(ref[i].abs().max())
+        tol = rel_tol * scale if bf16_ulps is None else \
+            bf16_ulps * bf16_ulp(scale)
+        agree = float((got[i].argmax(-1) == ref[i].argmax(-1))
+                      .float().mean())
+        finite = bool(torch.isfinite(got[i]).all())
+        ok = d <= tol and finite
+        if same_argmax:
+            ok = ok and agree == 1.0
+        rows.append({**labels, "logits": name, "max_abs_diff": d,
+                     "max_abs_ref": scale, "rel": d / scale,
+                     "tol_used": d / tol, "argmax_agree": agree,
+                     "finite": finite, "ok": ok})
+    return rows
+
+
+def rolled_experts_patch():
+    """The planted wiring fault of the MoE path: the gating kernel's
+    experts rolled by one (expert e's tokens go to expert e + 1)."""
+    from repro_torch.kernels import topk_gating as gating
+    gate = gating.topk_gating
+
+    def rolled(logits, *, k, renorm=True, impl="auto"):
+        w, e = gate(logits, k=k, renorm=renorm, impl=impl)
+        return w, (e + 1) % logits.shape[-1]
+    return [(gating, "topk_gating", rolled)]
+
+
+def moe_layer_check(cfg, params, dev):
+    """Layer 0's routed experts of the full-width model (its bf16
+    weights; shared experts off, so y is the routed part alone) on
+    unit-RMS inputs: the gating kernel route against the plain route
+    (gate_impl "ref") at a decode tick (8 tokens) and a prefill bucket
+    (1024), dropless, and at the training step (4096, capacity-limited),
+    within MOE_LAYER_TOL of max |y|; experts rolled by one in the
+    kernel's output must fail that gate."""
+    import torch
+    from repro_torch.models.moe import apply_moe
+    routed = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                              d_shared=0))
+    plain = dataclasses.replace(routed, gate_impl="ref")
+    lp = {k[4:]: v[0] for k, v in params["layers"].items()
+          if k.startswith("moe_")}
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows = []
+    with torch.no_grad():
+        for T, dropless in ((8, True), (1024, True), (4096, False)):
+            h = torch.randn(1, T, cfg.d_model, device=dev,
+                            generator=g).bfloat16()
+
+            def y(c):
+                return apply_moe(c, lp, h, dropless=dropless, _aux=False)[0]
+            got, ref = y(routed), y(plain)
+            bad = with_patches(rolled_experts_patch(), lambda: y(routed))
+            scale = float(ref.abs().max())
+            d, f = (float((x - ref).abs().max()) for x in (got, bad))
+            rows.append({"tokens": T, "dropless": dropless,
+                         "max_abs_diff": d, "max_abs_ref": scale,
+                         "rel": d / scale, "tol": MOE_LAYER_TOL,
+                         "fault_rel": f / scale,
+                         "ok": d <= MOE_LAYER_TOL * scale,
+                         "fault_caught": f > MOE_LAYER_TOL * scale})
+            print(json.dumps({"moe_layer_vs_plain": rows[-1]}), flush=True)
+    return rows
+
+
+def moe_serve_phase(dev):
+    """qwen2-moe-a2.7b at full width (24 layers, random bf16 weights
+    drawn on the card from SEED, not cut) serves the phi4 trace over its
+    own vocabulary, whole-prompt and in prefill chunks of 256; every
+    serving kernel, the gating kernel included, must launch.  Then the
+    kernel path against two references on the same prompts and forced
+    tokens (first-token logits and 4 decode ticks through a fragmented
+    paged pool): gating only (gate_impl "ref", every other kernel on)
+    within MOE_GATE_LOGIT_ULPS bf16 ulps with identical greedy tokens,
+    and the whole plain path within MOE_E2E_REL_TOL.  The planted fault
+    (experts rolled by one) is recorded against the whole plain path and
+    must fail ``moe_layer_check``."""
+    import torch
+    from repro_torch.launch.serve import build
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, model, params = build(MOE_ARCH, device=dev, seed=SEED)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    prompts, arrivals = request_set(cfg.vocab_size)
+    e2e_run(model, params, [prompts[0][:64], prompts[4][:80]], [0, 0], dev,
+            0, gen=4, kernels=SERVING_KERNELS)
+    runs, tokens = [], None
+    for chunk in (0, 256):
+        out, toks = e2e_run(model, params, prompts, arrivals, dev, chunk,
+                            kernels=SERVING_KERNELS)
+        runs.append(out)
+        tokens = tokens or toks
+        print(json.dumps({"moe_e2e": out}), flush=True)
+    gate_ref = build_model(dataclasses.replace(cfg, gate_impl="ref"))
+    plain = build_model(dataclasses.replace(cfg, attn_impl="ref",
+                                            norm_impl="ref",
+                                            gate_impl="ref"))
+    cmp, plain0 = [], None
+    for chunk in (0, 256):
+        got = teacher_forced(model, params, prompts, tokens, dev,
+                             prefill_chunk=chunk)
+        ref = teacher_forced(gate_ref, params, prompts, tokens, dev,
+                             prefill_chunk=chunk)
+        cmp += logit_rows(got, ref, bf16_ulps=MOE_GATE_LOGIT_ULPS,
+                          same_argmax=True, route="gating only",
+                          prefill_chunk=chunk)
+        ref = teacher_forced(plain, params, prompts, tokens, dev,
+                             prefill_chunk=chunk)
+        cmp += logit_rows(got, ref, MOE_E2E_REL_TOL, route="whole path",
+                          prefill_chunk=chunk)
+        plain0 = ref if chunk == 0 else plain0
+        del got
+    bad = with_patches(rolled_experts_patch(), lambda: teacher_forced(
+        model, params, prompts, tokens, dev))
+    fault = logit_rows(bad, plain0, MOE_E2E_REL_TOL,
+                       route="experts rolled by one (planted fault, "
+                             "recorded)", prefill_chunk=0)
+    del bad, plain0
+    for c in cmp + fault:
+        print(json.dumps({"moe_e2e_vs_plain": c}), flush=True)
+    layer = moe_layer_check(cfg, params, dev)
+    prof = profiled(lambda: e2e_run(model, params, prompts, arrivals, dev, 0,
+                                    kernels=SERVING_KERNELS))
+    print(json.dumps({"moe_profile": prof}), flush=True)
+    out = {"arch": MOE_ARCH, "params": n_params,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "runs": runs, "vs_plain": cmp, "gate_only_bf16_ulps":
+           MOE_GATE_LOGIT_ULPS, "rel_tol": MOE_E2E_REL_TOL,
+           "fault_rel_max": max(r["rel"] for r in fault),
+           "layer_vs_plain": layer, "profile": prof}
+    del params
+    torch.cuda.empty_cache()
+    failures = [f"moe serving {c['route']}: {c}" for c in cmp if not c["ok"]]
+    failures += [f"moe layer, {r['tokens']} tokens: {r}" for r in layer
+                 if not r["ok"] or not r["fault_caught"]]
+    return out, failures
+
+
+def gating_train_faults():
+    """Planted faults of the gating backward on the training path: the
+    TopKGating Function's kernel swapped for the plain backward with
+    one fault ("c term dropped" is invisible with renorm)."""
+    from repro_torch.kernels.topk_gating import ops
+    return {f: [(ops, "topk_gating_bwd",
+                 lambda logits, experts, dw, k, renorm, f=f:
+                 _gating_bwd_faulty(logits, experts, dw, renorm, f))]
+            for f in ("renorm Jacobian dropped", "scattered to index + 1")}
+
+
+def moe_train_phase(dev):
+    """qwen2-moe-a2.7b at full widths with its depth cut to
+    MOE_TRAIN_LAYERS trains on the card (capacity-limited dispatch,
+    groups of 512, cap 42).  On one batch, the kernel path against:
+    (1) the plain path (attention, rmsnorm and gating "ref") at the
+    training gates, the routed leaves at MOE_ROUTED_GRAD_TOL; (2) the
+    gating-only reference (gate_impl "ref", every other kernel on): loss
+    within MOE_GATE_LOSS_TOL, ``moe_router`` within MOE_ROUTED_GRAD_TOL;
+    (3) the kernel forward with the plain gating backward (the forward
+    bitwise the same): ``moe_router`` within MOE_GATE_ROUTER_TOL, which
+    the planted gating-backward faults must fail.  Then ``train_steps``."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.topk_gating import ops as gating_ops
+    from repro_torch.kernels.topk_gating import topk_gating_bwd_ref
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train_lib import loss_and_grads
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev, dtype="bfloat16")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    n_active = cfg.active_param_count()
+    b0 = train_batch(cfg, dev, 0)
+    router = ("layers/moe_router",)
+    routed_tol = {k: MOE_ROUTED_GRAD_TOL for k in MOE_ROUTED_LEAVES}
+    checks = {}
+    for name, ref_model, patches, kw in (
+            ("vs_plain", build_model(dataclasses.replace(
+                cfg, attn_impl="ref", norm_impl="ref", gate_impl="ref")),
+             (), dict(leaf_tol=routed_tol)),
+            ("vs_gate_ref", build_model(dataclasses.replace(
+                cfg, gate_impl="ref")), (),
+             dict(loss_tol=MOE_GATE_LOSS_TOL, grad_tol=MOE_ROUTED_GRAD_TOL,
+                  leaves=router)),
+            ("vs_plain_gating_backward", model,
+             [(gating_ops, "topk_gating_bwd", topk_gating_bwd_ref)],
+             dict(loss_tol=MOE_GATE_LOSS_TOL, grad_tol=MOE_GATE_ROUTER_TOL,
+                  leaves=router))):
+        lr, _, gr = with_patches(patches, lambda: loss_and_grads(
+            ref_model, params, b0))
+        lr = float(lr)
+        r = loss_grads_against(model, params, b0, lr, gr, **kw)
+        r["ok"] = r.pop("within") and math.isfinite(lr)
+        print(json.dumps({f"moe_train_{name}": r}), flush=True)
+        if name == "vs_plain_gating_backward":
+            r["controls"] = [
+                fault_row(fault, True, loss_grads_against(
+                    model, params, b0, lr, gr, fault_patches, **kw))
+                for fault, fault_patches in gating_train_faults().items()]
+        checks[name] = r
+        del gr
+    out, failures = train_steps(model, params, cfg, dev, MOE_TRAIN_KERNELS,
+                                n_active, "moe_train")
+    out = {"arch": MOE_ARCH, "n_layers": MOE_TRAIN_LAYERS,
+           "params": n_params, "active_params": n_active, **out, **checks}
+    for name, r in checks.items():
+        if not r["ok"]:
+            failures.append(f"moe training {name}: loss_rel {r['loss_rel']}"
+                            f", worst grad_rel {r['grad_rel_max']} "
+                            f"({r['grad_rel_max_leaf']})")
+    failures += [f"moe training: planted fault '{f['fault']}' passed the "
+                 f"gating backward gate"
+                 for f in checks["vs_plain_gating_backward"]["controls"]
+                 if not f["caught"]]
     return out, failures
 
 
@@ -1133,7 +1609,8 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    cases = {**kernel_phase(dev), **backward_kernel_phase(dev)}
+    cases = {**kernel_phase(dev), **backward_kernel_phase(dev),
+             **gating_phase(dev)}
     for name, rows in cases.items():
         for r in rows:
             print(json.dumps({"kernel": name, **r}), flush=True)
@@ -1160,26 +1637,41 @@ def main():
     train, train_failures = train_phase(dev)
     print(json.dumps({"train": train}), flush=True)
     failures += train_failures
+    torch.cuda.empty_cache()
+    moe_e2e, moe_failures = moe_serve_phase(dev)
+    failures += moe_failures
+    moe_train, moe_failures = moe_train_phase(dev)
+    print(json.dumps({"moe_train": moe_train}), flush=True)
+    failures += moe_failures
 
     # representative main-path case of each kernel: the decode tick for
-    # rmsnorm (8 slots) and paged attention (T = 1, bs 16, bf16), a
-    # 512-token fresh prefill for flash attention, the training step
-    # (4096 x 3072 rows, b 2 x 2048 causal) for the backward kernels.
-    # launches: per run of each path that ran the kernel, counters
-    # zeroed before the run and read after
+    # rmsnorm (8 slots), paged attention (T = 1, bs 16, bf16) and top-k
+    # gating (8 x 60, top-4), a 512-token fresh prefill for flash
+    # attention, the training step (4096 x 3072 rows, b 2 x 2048 causal,
+    # 4096 x 60 gating) for the backward kernels.  launches: per run of
+    # each path that ran the kernel, counters zeroed before the run and
+    # read after
     summary = []
     for name in KERNEL_META:
         r = cases[name][0]
         route, source, replaces = KERNEL_META[name]
-        runs = {f"serve prefill_chunk={run['prefill_chunk']}":
-                run["launches"][name] for run in e2e["runs"]
-                if name in SERVING_KERNELS}
-        per_step = {f"serve prefill_chunk={run['prefill_chunk']} "
-                    f"(per engine step)": run["launches_per_step"][name]
-                    for run in e2e["runs"] if name in SERVING_KERNELS}
-        if name in TRAIN_KERNELS:
-            runs[f"train {TRAIN_STEPS} steps"] = train["launches"][name]
-            per_step["train (per step)"] = train["launches_per_step"][name]
+        runs, per_step = {}, {}
+        for arch, serve, kernels in ((ARCH, e2e, DENSE_SERVING_KERNELS),
+                                     (MOE_ARCH, moe_e2e, SERVING_KERNELS)):
+            if name not in kernels:
+                continue
+            for run in serve["runs"]:
+                key = f"{arch} serve prefill_chunk={run['prefill_chunk']}"
+                runs[key] = run["launches"][name]
+                per_step[f"{key} (per engine step)"] = \
+                    run["launches_per_step"][name]
+        for arch, tr, kernels in ((ARCH, train, TRAIN_KERNELS),
+                                  (MOE_ARCH, moe_train, MOE_TRAIN_KERNELS)):
+            if name in kernels:
+                runs[f"{arch} train {TRAIN_STEPS} steps"] = \
+                    tr["launches"][name]
+                per_step[f"{arch} train (per step)"] = \
+                    tr["launches_per_step"][name]
         summary.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "case": r["case"],
@@ -1194,11 +1686,20 @@ def main():
     print(json.dumps({"model": {k: e2e[k] for k in
                                 ("arch", "params", "peak_mem_gb")}}),
           flush=True)
-    print(json.dumps({"train_summary": {
-        k: train[k] for k in ("median_step_s", "tokens_per_s",
-                              "mfu_vs_bf16_dense_peak", "peak_mem_gb",
-                              "losses", "launches_per_step")}}),
-        flush=True)
+    for label, tr in (("train_summary", train),
+                      ("moe_train_summary", moe_train)):
+        print(json.dumps({label: {
+            k: tr[k] for k in ("median_step_s", "tokens_per_s",
+                               "mfu_vs_bf16_dense_peak", "peak_mem_gb",
+                               "losses", "launches_per_step")}}),
+            flush=True)
+    print(json.dumps({"moe_serve_summary": {
+        "peak_mem_gb": moe_e2e["peak_mem_gb"],
+        "device_busy_share": moe_e2e["profile"]["device_busy_share"],
+        "runs": [{k: run[k] for k in (
+            "prefill_chunk", "seconds", "tokens_per_s", "ttft_p50_s",
+            "ttft_p95_s", "tpot_p50_s", "tpot_p95_s", "engine_steps")}
+            for run in moe_e2e["runs"]]}}), flush=True)
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)

@@ -8,7 +8,7 @@ it drives a path and reads them after shows which kernels that path went
 through.
 """
 from repro_torch.kernels import flash_attention, paged_chunk_attention, \
-    rmsnorm
+    rmsnorm, topk_gating
 
 KERNELS = {
     "rmsnorm": rmsnorm.LAUNCHES,
@@ -18,6 +18,8 @@ KERNELS = {
     "flash_attention_bwd_dkv": flash_attention.LAUNCHES_BWD_DKV,
     "flash_attention_bwd_dq": flash_attention.LAUNCHES_BWD_DQ,
     "paged_chunk_attention": paged_chunk_attention.LAUNCHES,
+    "topk_gating": topk_gating.LAUNCHES,
+    "topk_gating_bwd": topk_gating.LAUNCHES_BWD,
 }
 
 

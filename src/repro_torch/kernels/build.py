@@ -32,6 +32,7 @@ SOURCES = {
     "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "paged_chunk_attention":
         "paged_chunk_attention/csrc/paged_chunk_attention.cu",
+    "topk_gating": "topk_gating/csrc/topk_gating.cu",
 }
 _INCLUDE = _KERNELS / "csrc"
 

@@ -1,5 +1,5 @@
-"""Model API (port of ``repro/models/model_api.py``), dense decoder-only
-family.
+"""Model API (port of ``repro/models/model_api.py``), the dense and MoE
+decoder-only families.
 
   loss(params, batch) -> (loss, {"ce", "aux_loss"})      training
   init_seq_state(params, max_len, ...) -> SeqState        serving
@@ -22,12 +22,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import apply_norm, cross_entropy, norm_defs
 from repro_torch.models.params import init_tree, p
-from repro_torch.models.transformer import (_sub, chunk_layer, dense_layer,
-                                            layer_defs, layer_slice,
-                                            paged_chunk_layer, scan_layers,
-                                            stack_defs)
+from repro_torch.models.transformer import (_sub, attn_sublayer, chunk_layer,
+                                            dense_layer, layer_defs,
+                                            layer_slice, paged_chunk_layer,
+                                            scan_layers, stack_defs)
 
 
 def _embed_defs(cfg):
@@ -104,7 +105,16 @@ class BaseLM:
 
 
 class DecoderLM(BaseLM):
-    """Dense decoder-only LM over stacked layers."""
+    """Dense / MoE decoder-only LM over stacked layers.  MoE layers
+    replace the MLP with ``models.moe.apply_moe`` in groups of
+    ``moe_group`` tokens: capacity-limited in training (its aux loss
+    summed over the layers into the loss), dropless when serving."""
+
+    def __init__(self, cfg: ModelConfig,
+                 moe_group: int = moe_mod.DEFAULT_GROUP):
+        super().__init__(cfg)
+        self.is_moe = cfg.moe is not None
+        self.moe_group = moe_group
 
     def param_defs(self):
         defs = _embed_defs(self.cfg)
@@ -113,18 +123,43 @@ class DecoderLM(BaseLM):
 
     # ---- forward over stacked layers (training) ----
 
+    def _moe_layer(self, x, aux, lp):
+        cfg = self.cfg
+        x = attn_sublayer(cfg, lp, x, causal=True)
+        h = apply_norm(cfg, _sub(lp, "ln2_"), x, name="norm")
+        y, a = moe_mod.apply_moe(cfg, _sub(lp, "moe_"), h,
+                                 group_size=self.moe_group)
+        return x + y, aux + a
+
     def _forward(self, params, x, remat=True):
         cfg = self.cfg
-        x = scan_layers(lambda h, lp: dense_layer(cfg, lp, h, causal=True),
-                        x, params["layers"], remat=remat)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.is_moe:
+            fn = self._moe_layer
+        else:
+            def fn(h, a, lp):
+                return dense_layer(cfg, lp, h, causal=True), a
+        return scan_layers(fn, x, aux, params["layers"], remat=remat)
+
+    def _serving_ffn(self):
+        """The FFN of the serving layers: None (the dense MLP), or the
+        dropless MoE without its aux loss, which serving drops."""
+        if not self.is_moe:
+            return None
+
+        def ffn(lp, h):
+            return moe_mod.apply_moe(self.cfg, _sub(lp, "moe_"), h,
+                                     group_size=self.moe_group,
+                                     dropless=True, _aux=False)[0]
+        return ffn
 
     def _inputs(self, params, batch):
         return self._embed(params, batch["tokens"])
 
     def loss(self, params, batch, remat=True):
         """batch {"tokens", "labels"[, "mask"]} (b, s) -> (ce + aux,
-        {"ce", "aux_loss"}); aux is a zero scalar for the dense family.
+        {"ce", "aux_loss"}); aux is the MoE layers' summed load-balance
+        loss, a zero scalar for the dense family.
         ``remat``: recompute each layer in the backward (see
         ``scan_layers``)."""
         x = self._inputs(params, batch)
@@ -152,11 +187,12 @@ class DecoderLM(BaseLM):
             return self._forward_paged(params, state, tokens, positions,
                                        all_logits=all_logits)
         cfg = self.cfg
+        ffn = self._serving_ffn()
         x = embeds if embeds is not None else self._embed(params, tokens)
         for i in range(cfg.n_layers):
             x = chunk_layer(cfg, layer_slice(params["layers"], i), x,
                             state["k"][i], state["v"][i], positions,
-                            fresh=fresh)
+                            fresh=fresh, ffn=ffn)
         logits = self._chunk_logits(params, x, positions, all_logits)
         return state, logits
 
@@ -170,6 +206,7 @@ class DecoderLM(BaseLM):
         cfg = self.cfg
         tables = state["block_tables"]
         quant = "k_scale" in state
+        ffn = self._serving_ffn()
         x = self._embed(params, tokens)
         slots = attn.paged_slot_index(tables, positions, state["k"].shape[2])
         for i in range(cfg.n_layers):
@@ -177,7 +214,7 @@ class DecoderLM(BaseLM):
                 cfg, layer_slice(params["layers"], i), x, state["k"][i],
                 state["v"][i], tables, positions, slots,
                 k_scale=state["k_scale"][i] if quant else None,
-                v_scale=state["v_scale"][i] if quant else None)
+                v_scale=state["v_scale"][i] if quant else None, ffn=ffn)
         logits = self._chunk_logits(params, x, positions, all_logits)
         lengths = positions.max(dim=1).values.to(torch.int32) + 1
         return {**state, "lengths": lengths}, logits
@@ -191,16 +228,18 @@ class DecoderLM(BaseLM):
         return self.cfg.n_layers
 
 
-_NOT_PORTED = ("moe", "vlm", "hybrid", "ssm", "audio")
+_NOT_PORTED = ("vlm", "hybrid", "ssm", "audio")
 
 
-def build_model(cfg: ModelConfig) -> BaseLM:
-    if cfg.family == "dense":
-        return DecoderLM(cfg)
+def build_model(cfg: ModelConfig, *, moe_group: int | None = None) -> BaseLM:
+    """The model of ``cfg.family``; ``moe_group``: the MoE dispatch group
+    size (default ``models.moe.DEFAULT_GROUP``)."""
+    if cfg.family in ("dense", "moe"):
+        return DecoderLM(cfg, moe_group=moe_group or moe_mod.DEFAULT_GROUP)
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            f"repro_torch yet; only the dense family is")
+            f"repro_torch yet; only the dense and MoE families are")
     raise ValueError(cfg.family)
 
 

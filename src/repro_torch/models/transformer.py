@@ -1,5 +1,6 @@
-"""Dense decoder layers for training and the chunk-oriented serving
-forward (port of ``repro/models/transformer.py``).
+"""Decoder layers for training and the chunk-oriented serving forward
+(port of ``repro/models/transformer.py``); the serving layers take the
+MoE family's FFN in place of the dense MLP.
 
 Layers are stacked along a leading axis, as in the JAX parameter tree;
 where JAX runs ``lax.scan`` over that axis, the port loops over the
@@ -16,6 +17,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (activate, apply_norm, is_gated,
                                        norm_defs)
+from repro_torch.models.moe import moe_defs
 from repro_torch.models.params import p, tree_map
 
 
@@ -50,11 +52,16 @@ def apply_mlp(cfg, params, x, prefix=""):
 
 
 def layer_defs(cfg):
+    """One layer's parameters: ln1_, attn_, ln2_ and the FFN's, mlp_ for
+    the dense family or moe_ for the MoE family."""
     defs = {}
     defs.update({f"ln1_{k}": v for k, v in norm_defs(cfg).items()})
     defs.update({f"attn_{k}": v for k, v in attn.attn_defs(cfg).items()})
     defs.update({f"ln2_{k}": v for k, v in norm_defs(cfg).items()})
-    defs.update(mlp_defs(cfg, prefix="mlp_"))
+    if cfg.moe is None:
+        defs.update(mlp_defs(cfg, prefix="mlp_"))
+    else:
+        defs.update({f"moe_{k}": v for k, v in moe_defs(cfg).items()})
     return defs
 
 
@@ -68,21 +75,35 @@ def layer_slice(stacked: dict, i: int) -> dict:
     return {k: v[i] for k, v in stacked.items()}
 
 
-def dense_layer(cfg, lp, x, *, causal=True, positions=None):
-    """Pre-norm transformer layer over a whole sequence. x (b, s, d)."""
+def attn_sublayer(cfg, lp, x, *, causal=True, positions=None):
+    """The pre-norm attention half of a layer over a whole sequence,
+    residual included. x (b, s, d)."""
     h = apply_norm(cfg, _sub(lp, "ln1_"), x, name="norm")
     q, k, v = attn.project_qkv(cfg, _sub(lp, "attn_"), h, positions=positions)
     o = attn.attention_core(cfg, q, k, v, causal=causal)
-    x = x + attn.out_proj(cfg, _sub(lp, "attn_"), o)
+    return x + attn.out_proj(cfg, _sub(lp, "attn_"), o)
+
+
+def dense_layer(cfg, lp, x, *, causal=True, positions=None):
+    """Pre-norm transformer layer over a whole sequence. x (b, s, d)."""
+    x = attn_sublayer(cfg, lp, x, causal=causal, positions=positions)
+    return _ffn_sublayer(cfg, lp, x, None)
+
+
+def _ffn_sublayer(cfg, lp, x, ffn):
+    """x + FFN(ln2(x)); ``ffn(lp, h) -> y`` (default: the dense MLP)."""
     h = apply_norm(cfg, _sub(lp, "ln2_"), x, name="norm")
-    return x + apply_mlp(cfg, lp, h, prefix="mlp_")
+    if ffn is None:
+        return x + apply_mlp(cfg, lp, h, prefix="mlp_")
+    return x + ffn(lp, h)
 
 
 def paged_chunk_layer(cfg, lp, x, k_pool, v_pool, block_tables, positions,
-                      slots, *, k_scale=None, v_scale=None):
+                      slots, *, k_scale=None, v_scale=None, ffn=None):
     """One layer of a chunk (T >= 1 tokens) against a block-paged pool:
     write the chunk's K/V at ``slots`` (in place), then attend positions
-    ``<=`` each token's own.  T = 1 is a decode tick."""
+    ``<=`` each token's own.  T = 1 is a decode tick.  ``ffn(lp, h) -> y``
+    replaces the dense MLP (the MoE family's experts)."""
     h = apply_norm(cfg, _sub(lp, "ln1_"), x, name="norm")
     q, k, v = attn.project_qkv(cfg, _sub(lp, "attn_"), h,
                                positions=positions)
@@ -90,16 +111,16 @@ def paged_chunk_layer(cfg, lp, x, k_pool, v_pool, block_tables, positions,
     o = attn.paged_chunk_attn(cfg, q, k_pool, v_pool, block_tables,
                               positions, k_scale=k_scale, v_scale=v_scale)
     x = x + attn.out_proj(cfg, _sub(lp, "attn_"), o)
-    h = apply_norm(cfg, _sub(lp, "ln2_"), x, name="norm")
-    return x + apply_mlp(cfg, lp, h, prefix="mlp_")
+    return _ffn_sublayer(cfg, lp, x, ffn)
 
 
-def chunk_layer(cfg, lp, x, ck, cv, positions, *, fresh=False):
+def chunk_layer(cfg, lp, x, ck, cv, positions, *, fresh=False, ffn=None):
     """One layer of the chunk-oriented forward against a dense cache
     ck/cv (b, S, kv, hd), updated in place.  ``fresh=True`` is the
     caller's promise that the cache is factory-fresh and valid positions
     are lockstep ``arange`` rows: the layer then runs the causal flash
-    core over the chunk itself instead of the cache."""
+    core over the chunk itself instead of the cache.  ``ffn`` as in
+    ``paged_chunk_layer``."""
     h = apply_norm(cfg, _sub(lp, "ln1_"), x, name="norm")
     q, k, v = attn.project_qkv(cfg, _sub(lp, "attn_"), h,
                                positions=positions)
@@ -109,8 +130,7 @@ def chunk_layer(cfg, lp, x, ck, cv, positions, *, fresh=False):
     else:
         o = attn.chunk_attention(cfg, q, ck, cv, positions)
     x = x + attn.out_proj(cfg, _sub(lp, "attn_"), o)
-    h = apply_norm(cfg, _sub(lp, "ln2_"), x, name="norm")
-    return x + apply_mlp(cfg, lp, h, prefix="mlp_")
+    return _ffn_sublayer(cfg, lp, x, ffn)
 
 
 # -------------------------- stacked-layer helpers ---------------------------
@@ -121,20 +141,22 @@ def stack_defs(defs: dict, n: int) -> dict:
                                 d.scale, d.dtype), defs)
 
 
-def scan_layers(fn, x, stacked, *, remat=True):
-    """Run ``fn(x, layer_params) -> x`` over stacked layers, a Python loop
-    where JAX runs ``lax.scan``.  With ``remat`` (and gradients on) each
-    layer runs under ``torch.utils.checkpoint`` — the JAX per-layer
-    ``jax.checkpoint``: only each layer's input is kept, and the backward
-    recomputes the layer.  The stacked leaves are split with ``unbind``,
-    whose backward stacks the per-layer gradients in one copy (indexing
-    layer by layer would add a zero-filled full-depth tensor per layer)."""
+def scan_layers(fn, x, aux, stacked, *, remat=True):
+    """Run ``fn(x, aux, layer_params) -> (x, aux)`` over stacked layers,
+    a Python loop where JAX runs ``lax.scan`` over an (x, aux) carry
+    (aux: the MoE family's summed aux loss, a zero for the dense one).
+    With ``remat`` (and gradients on) each layer runs under
+    ``torch.utils.checkpoint`` — the JAX per-layer ``jax.checkpoint``:
+    only each layer's inputs are kept, and the backward recomputes the
+    layer.  The stacked leaves are split with ``unbind``, whose backward
+    stacks the per-layer gradients in one copy (indexing layer by layer
+    would add a zero-filled full-depth tensor per layer)."""
     layers = {k: v.unbind(0) for k, v in stacked.items()}
     depth = len(next(iter(layers.values())))
     for i in range(depth):
         lp = {k: v[i] for k, v in layers.items()}
         if remat and torch.is_grad_enabled():
-            x = checkpoint(fn, x, lp, use_reentrant=False)
+            x, aux = checkpoint(fn, x, aux, lp, use_reentrant=False)
         else:
-            x = fn(x, lp)
-    return x
+            x, aux = fn(x, aux, lp)
+    return x, aux

@@ -39,7 +39,7 @@ from repro_torch.serving.paged_cache import PagedKVCache
 from repro_torch.serving.stats import serving_stats
 from repro_torch.telemetry import Registry, now, span
 
-_PAGED_FAMILIES = ("dense",)
+_PAGED_FAMILIES = ("dense", "moe")
 _MASK64 = (1 << 63) - 1
 
 

@@ -57,3 +57,73 @@ def prompts(vocab, n, length, seed=0):
     """Synthetic prompts from the port's copy of the data generator."""
     from repro_torch.data.synthetic import SyntheticLM
     return SyntheticLM(vocab, length, seed).batch(0, n)["tokens"]
+
+
+# XLA's CPU backend at optimisation level 0: about half the compile time,
+# the same fp32 arithmetic
+FAST_XLA = {"xla_backend_optimization_level": 0,
+            "xla_llvm_disable_expensive_passes": True}
+
+
+def compiled(fn, *args):
+    """``jax.jit(fn)`` compiled for ``args`` with ``FAST_XLA``."""
+    import jax
+    return jax.jit(fn).lower(*args).compile(compiler_options=FAST_XLA)
+
+
+def jax_mesh():
+    """A (1, 1) ("data", "model") mesh with Auto axes: the JAX gspmd
+    step's microbatch path constrains shardings, which an Explicit-axis
+    mesh (jax's default) refuses."""
+    import jax
+    auto = (jax.sharding.AxisType.Auto,) * 2
+    return jax.make_mesh((1, 1), ("data", "model"), axis_types=auto)
+
+
+def train_both(arch, microbatch, n_steps, b, s, n_layers=2):
+    """The quickstart setting (``arch`` smoke, fp32, AdamW with
+    warmup_cosine(3e-3, 2, 20), fp32 params) stepped in both packages
+    from the same weights on the same synthetic batches; returns (JAX
+    losses, port losses, JAX state, port state).  One step runs the JAX
+    package's gspmd step (``train_lib``) compiled here; more run its
+    ``parallel.plan.make_train_step``, from a state placed on the step's
+    shardings so that it compiles once."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import train_lib
+    from repro.optim import AdamW as JAdamW
+    from repro.optim import warmup_cosine as jcos
+    from repro.parallel import plan as jplan
+    from repro_torch.data.synthetic import batch_for_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.parallel import plan as tplan
+    jcfg, jm, jp, tcfg, tm, tp = build_pair(arch, n_layers=n_layers)
+    kw = dict(mode="gspmd", tp=1, fsdp=False, batch_axes=("data",),
+              microbatch=microbatch)
+    jopt = JAdamW(lr=jcos(3e-3, 2, 20), param_dtype="float32")
+    topt = AdamW(lr=warmup_cosine(3e-3, 2, 20), param_dtype="float32")
+    mesh = jax_mesh()
+    jpl, tpl = jplan.ParallelPlan(**kw), tplan.ParallelPlan(**kw)
+    jstate = jplan.init_state(jpl, jopt, jp, mesh)
+    jstate = jax.device_put(jstate, train_lib.to_named(
+        train_lib.state_pspecs(jm, jpl.gspmd_config(), mesh), mesh))
+    tstate = tplan.init_state(tpl, topt, tp)
+    tstep = tplan.make_train_step(tpl, tm, topt, device="cpu")
+    batches = [batch_for_model(tcfg, "train", i, b, s)
+               for i in range(n_steps)]
+    jbatches = [{k: jnp.asarray(v) for k, v in x.items()} for x in batches]
+    if n_steps == 1:
+        jstep = compiled(train_lib.make_train_step(
+            jm, jopt, jpl.gspmd_config(), mesh), jstate, jbatches[0])
+    else:
+        jstep = jplan.make_train_step(jpl, jm, jopt, mesh,
+                                      params_template=jp)
+    jl, tl = [], []
+    for batch, jbatch in zip(batches, jbatches):
+        jstate, jmet = jstep(jstate, jbatch)
+        tstate, tmet = tstep(tstate, batch)
+        jl.append(float(jmet["loss"]))
+        tl.append(float(tmet["loss"]))
+        assert set(tmet) == set(jmet)
+    return jl, tl, jstate, tstate

@@ -152,6 +152,69 @@ def test_flash_backward_kernels_match_plain_on_card(cuda, sq, skv, q_offset,
         torch.testing.assert_close(got.float(), ref, atol=2e-2, rtol=2e-2)
 
 
+
+def _gating_logits(T, E, device, tie_rows=0, seed=0):
+    """fp32 router logits; the first ``tie_rows`` rows are all equal
+    (ties everywhere), the next one all zero."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(T, E, device=device, generator=g) * 2
+    if tie_rows:
+        x[:tie_rows] = 0.5
+        x[tie_rows] = 0.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,E,k,renorm,ties", [(37, 60, 4, True, 0),
+                                               (300, 128, 8, True, 0),
+                                               (300, 128, 8, False, 0),
+                                               (40, 60, 4, True, 3)])
+def test_topk_gating_kernels_match_plain_on_card(cuda, T, E, k, renorm,
+                                                  ties):
+    """Forward kernel: experts identical to the plain versions', weights
+    within 1e-6; tie rows pick experts 0..k-1.  Backward kernel: dlogits
+    within (1e-6, 1e-5) of the plain backward and of autograd through
+    the plain forward; the Function launches both kernels."""
+    from repro_torch.kernels.topk_gating import (LAUNCHES, LAUNCHES_BWD,
+                                                 topk_gating,
+                                                 topk_gating_bwd_ref,
+                                                 topk_gating_fwd_ref,
+                                                 topk_gating_ref)
+    from repro_torch.kernels.topk_gating.kernel import (topk_gating_bwd,
+                                                        topk_gating_fwd)
+    x = _gating_logits(T, E, cuda, tie_rows=ties)
+    w, e = topk_gating_fwd(x, k, renorm)
+    for rw, re in (topk_gating_fwd_ref(x, k, renorm),
+                   topk_gating_ref(x, k, renorm)):
+        assert torch.equal(e, re)
+        torch.testing.assert_close(w, rw, atol=1e-6, rtol=0)
+    if ties:
+        want = torch.arange(k, device=cuda, dtype=torch.int32)
+        assert torch.equal(e[:ties + 1], want.expand(ties + 1, k))
+    dw = torch.randn(T, k, device=cuda)
+    got = topk_gating_bwd(x, e, dw, k, renorm)
+    torch.testing.assert_close(got, topk_gating_bwd_ref(x, e, dw, k, renorm),
+                               atol=1e-6, rtol=1e-5)
+    xr = x.clone().requires_grad_()
+    auto = torch.autograd.grad(topk_gating_ref(xr, k, renorm)[0], xr, dw)[0]
+    torch.testing.assert_close(got, auto, atol=1e-6, rtol=1e-5)
+    n_fwd, n_bwd = LAUNCHES.value, LAUNCHES_BWD.value
+    fn = torch.autograd.grad(topk_gating(xr, k=k, renorm=renorm)[0], xr,
+                             dw)[0]
+    assert (LAUNCHES.value, LAUNCHES_BWD.value) == (n_fwd + 1, n_bwd + 1)
+    assert torch.equal(fn, got)
+    if renorm:                                  # bf16 logits: same picks
+        xb = x.bfloat16()
+        wb, eb = topk_gating_fwd(xb, k)
+        rwb, reb = topk_gating_fwd_ref(xb, k)
+        assert torch.equal(eb, reb)
+        torch.testing.assert_close(wb, rwb, atol=1e-6, rtol=0)
+        gb = topk_gating_bwd(xb, eb, dw, k)
+        assert gb.dtype == torch.bfloat16
+        torch.testing.assert_close(gb.float(), topk_gating_bwd_ref(
+            xb, eb, dw, k).float(), atol=1e-2, rtol=1e-2)
+
+
 @pytest.mark.cuda
 def test_two_train_steps_through_the_kernels(cuda):
     """A 2-layer phi4-mini smoke model in bf16 takes two AdamW steps

@@ -10,7 +10,7 @@ same synthetic batches:
 
 The JAX side runs its plain jnp paths (never Pallas interpret mode).
 Where the test owns the ``jit``, XLA's CPU backend compiles at
-optimisation level 0 (``_compiled``), in about half the time; the
+optimisation level 0 (``_torch_pair.compiled``), in about half the time; the
 programs compute the same fp32 arithmetic.  On CPU tensors the port's
 rmsnorm and flash-attention ``autograd.Function``s run their plain
 forward and backward functions, so these tests also hold the Functions'
@@ -22,22 +22,9 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_pair import build_pair  # noqa: E402
+from _torch_pair import build_pair, compiled, train_both  # noqa: E402
 
 TOL = 1e-5
-_FAST = {"xla_backend_optimization_level": 0,
-         "xla_llvm_disable_expensive_passes": True}
-
-
-def _compiled(fn, *args):
-    return jax.jit(fn).lower(*args).compile(compiler_options=_FAST)
-
-
-def _mesh():
-    # Auto axes: the JAX gspmd step's microbatch path constrains
-    # shardings, which an Explicit-axis mesh (jax's default) refuses
-    auto = (jax.sharding.AxisType.Auto,) * 2
-    return jax.make_mesh((1, 1), ("data", "model"), axis_types=auto)
 
 
 def _batch(cfg, step, b, s):
@@ -65,8 +52,8 @@ def test_loss_and_grads_match_jax(arch):
     batch = _batch(tcfg, 0, 2, 16)
     batch["mask"] = (np.arange(16) < [[16], [11]]).astype(np.float32)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    (jl, jmet), jg = _compiled(jax.value_and_grad(jm.loss, has_aux=True),
-                               jp, jb)(jp, jb)
+    (jl, jmet), jg = compiled(jax.value_and_grad(jm.loss, has_aux=True),
+                              jp, jb)(jp, jb)
     tl, tmet, tg = loss_and_grads(
         tm, tp, {k: torch.from_numpy(v) for k, v in batch.items()})
     assert set(tmet) == set(jmet) == {"ce", "aux_loss"}
@@ -80,52 +67,8 @@ def _np(tree):
     return tree.detach().numpy()
 
 
-def _both_steps(microbatch, n_steps, b, s):
-    """The quickstart setting (phi4-mini smoke, fp32, AdamW with
-    warmup_cosine(3e-3, 2, 20), fp32 params) stepped in both packages
-    from the same weights; returns (JAX losses, port losses, JAX state,
-    port state).  One step runs the JAX package's gspmd step
-    (``train_lib``) compiled here; more run its
-    ``parallel.plan.make_train_step``, from a state placed on the step's
-    shardings so that it compiles once."""
-    from repro import train_lib
-    from repro.optim import AdamW as JAdamW
-    from repro.optim import warmup_cosine as jcos
-    from repro.parallel import plan as jplan
-    from repro_torch.optim import AdamW, warmup_cosine
-    from repro_torch.parallel import plan as tplan
-    jcfg, jm, jp, tcfg, tm, tp = build_pair("phi4-mini-3.8b")
-    kw = dict(mode="gspmd", tp=1, fsdp=False, batch_axes=("data",),
-              microbatch=microbatch)
-    jopt = JAdamW(lr=jcos(3e-3, 2, 20), param_dtype="float32")
-    topt = AdamW(lr=warmup_cosine(3e-3, 2, 20), param_dtype="float32")
-    mesh = _mesh()
-    jpl, tpl = jplan.ParallelPlan(**kw), tplan.ParallelPlan(**kw)
-    jstate = jplan.init_state(jpl, jopt, jp, mesh)
-    jstate = jax.device_put(jstate, train_lib.to_named(
-        train_lib.state_pspecs(jm, jpl.gspmd_config(), mesh), mesh))
-    tstate = tplan.init_state(tpl, topt, tp)
-    tstep = tplan.make_train_step(tpl, tm, topt, device="cpu")
-    batches = [_batch(tcfg, i, b, s) for i in range(n_steps)]
-    jbatches = [{k: jnp.asarray(v) for k, v in x.items()} for x in batches]
-    if n_steps == 1:
-        jstep = _compiled(train_lib.make_train_step(
-            jm, jopt, jpl.gspmd_config(), mesh), jstate, jbatches[0])
-    else:
-        jstep = jplan.make_train_step(jpl, jm, jopt, mesh,
-                                      params_template=jp)
-    jl, tl = [], []
-    for batch, jbatch in zip(batches, jbatches):
-        jstate, jmet = jstep(jstate, jbatch)
-        tstate, tmet = tstep(tstate, batch)
-        jl.append(float(jmet["loss"]))
-        tl.append(float(tmet["loss"]))
-        assert set(tmet) == set(jmet)
-    return jl, tl, jstate, tstate
-
-
 def test_quickstart_trajectory_matches_jax():
-    jl, tl, jstate, tstate = _both_steps(1, 10, 4, 64)
+    jl, tl, jstate, tstate = train_both("phi4-mini-3.8b", 1, 10, 4, 64)
     assert set(tstate) == set(jstate) == {"params", "master", "m", "v",
                                           "step"}
     assert int(tstate["step"]) == int(jstate["step"]) == 10
@@ -152,7 +95,7 @@ def test_microbatch_step_matches_jax():
     Adam's first step divides g by |g| + eps, which near-zero gradients
     make ill-conditioned; test_quickstart_trajectory_matches_jax holds
     the update over ten steps)."""
-    jl, tl, jstate, tstate = _both_steps(2, 1, 4, 32)
+    jl, tl, jstate, tstate = train_both("phi4-mini-3.8b", 2, 1, 4, 32)
     np.testing.assert_allclose(tl, jl, rtol=TOL, atol=0)
     _assert_leaves_close(tstate["m"], jstate["m"])
     _assert_leaves_close(tstate["v"], jstate["v"])
