@@ -59,9 +59,27 @@ Phases (any failure exits non-zero and prints no result line):
    path, the gating-only reference and the plain gating backward (with
    planted gating-backward faults), then 8 AdamW steps as in 4.
 
+7. hybrid serving: zamba2-1.2b at full width and depth (38 Mamba-2
+   layers, the shared attention block 6 times, random bf16 weights from
+   seed 0) serves the same trace, both runs, every serving kernel (the
+   SSD chunk scan included, 38 launches per prompt) launched; logits
+   against the SSD-only reference (ssm_impl "ref") and the whole plain
+   path.
+8. hybrid training: zamba2-1.2b at full width and depth: loss and
+   gradients against the plain path and against the plain SSD backward
+   in place of the kernel's (with planted SSD-backward faults), then 8
+   AdamW steps as in 4, with the SSD kernels' launches per step checked.
+
 The kernel cases of phase 2 include both top-k gating kernels at the
 MoE shapes (qwen2-moe's decode, prefill and training rows, 64 experts
-top-6, 128 top-8, no renorm, tie rows) with planted faults.
+top-6, 128 top-8, no renorm, tie rows) with planted faults, both SSD
+chunk-scan kernels at zamba2's shapes (the training step, prefills of
+1024, 200 and 768 tokens, one fp32 case, a 777-token prompt through
+the padding wrapper) with planted faults (the carried state dropped,
+the diagonal of L masked, dh_final ignored, da's reverse cumsum shifted
+by a row, dB summed over half the heads), and the reused forward and
+backward kernels at zamba2's shapes (head dim 64, rmsnorm over 4096 and
+2048).
 
 Every result is printed as one JSON object per line.  The last line is
 {"ok": true, "device": {...}}; the line before it lists every kernel's
@@ -188,11 +206,57 @@ KERNEL_META = {
     "topk_gating_bwd": (
         "cuda", "src/repro_torch/kernels/topk_gating/csrc/topk_gating.cu",
         "src/repro/kernels/topk_gating/kernel.py:94"),
+    "ssd_scan": ("cuda", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:76"),
+    "ssd_scan_bwd": (
+        "cuda", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/kernel.py:195"),
 }
 DENSE_SERVING_KERNELS = ("rmsnorm", "flash_attention",
                          "paged_chunk_attention")
 SERVING_KERNELS = DENSE_SERVING_KERNELS + ("topk_gating",)
 MOE_TRAIN_KERNELS = TRAIN_KERNELS + ("topk_gating", "topk_gating_bwd")
+
+# the hybrid family: zamba2-1.2b (38 Mamba-2 layers, one shared attention
+# block every 6) serves and trains at full width and full depth
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_SERVING_KERNELS = DENSE_SERVING_KERNELS + ("ssd_scan",)
+HYBRID_TRAIN_KERNELS = TRAIN_KERNELS + ("ssd_scan", "ssd_scan_bwd")
+# SSD chunk scan, kernel vs plain function on the same inputs, max
+# |difference| over max |plain|: outputs in bf16 are rounded once at the
+# end by both sides (sums in another order can round an element to the
+# other bf16 neighbour: up to 2^-7 of the largest value); fp32 outputs
+# (h_final, h_prev, da) differ only in the order of fp32 sums
+SSD_REL_TOL = {"bf16": 1e-2, "fp32": 1e-4}
+# zamba2 serving, the SSD scan alone switched (ssm_impl "ref" against the
+# kernel, every other kernel on): bf16 ulps of the largest logit, with
+# identical greedy tokens.  The sound kernel reads bitwise equal under
+# the init rule; 1 ulp (not 2) so that the SSD kernel with its carry
+# dropped, 1.81-2.13 ulps there, fails it
+HYBRID_SSD_LOGIT_ULPS = 1
+# zamba2 serving, kernel path vs the whole plain path: max |difference|
+# over max |plain logit|.  bf16 rounding through 38 + 6 sublayers: the
+# first reading was 1.57-1.80e-2 (phi4's gate is 1.5e-2 at 32 layers)
+# with the SSD-only logits bitwise equal, and both bf16 paths lay
+# 4.1-5.5e-2 from the fp32 forward, the kernel path no farther than the
+# plain one (recorded every run in ``hybrid_serve_phase``)
+HYBRID_E2E_REL_TOL = 2.5e-2
+# zamba2 serving on slow-decay weights: A_log = log(0.05) in every Mamba
+# layer (as the CPU tests draw it; a ~ -0.05 dt per step, where the init
+# rule's A_log = 1 gives a ~ -1.9), so that the state carried across a
+# 256-token chunk matters.  There each SSD forward call of the serving
+# path is held at the op (SSD_REL_TOL against the plain forward on the
+# same inputs) and the logits at the two gates above; the kernel with
+# its carry dropped must fail the op gate and the SSD-only one
+SLOW_A_LOG = math.log(0.05)
+# zamba2 training, the kernel forward with the plain SSD backward in
+# place of the kernel's (the forward bitwise the same) is held at two
+# levels: at the op, each of the 38 backward calls' kernel outputs
+# against the plain backward's on the same saved inputs (SSD_REL_TOL);
+# at the Mamba leaves, the gradients' relative norm against the kernel
+# path's within TRAIN_GRAD_REL_TOL.  The leaves cannot hold the plain
+# backward to 1e-3: the two backwards round dx, dB and dC to bf16 apart,
+# and 38 layers of bf16 backward carry that to ~1.2e-2 (first reading).
 
 
 def card_line():
@@ -280,9 +344,13 @@ def host_ms_pair(a, b, reps=5):
     return min(ra), min(rb)
 
 
-def bound(nbytes, ops, peak):
+def bound(nbytes, ops, peak=None):
+    """The least time (ms) for ``nbytes`` of memory traffic and ``ops``
+    operations at the ``peak`` rate, or ``ops`` {peak: count} for work
+    of several types (their times add)."""
+    per = ops if isinstance(ops, dict) else {peak: ops}
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK[peak] * 1e3
+    t_ops = sum(n / PEAK[k] for k, n in per.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -480,7 +548,7 @@ def check_paged(dev, *, kv_dtype, T, bs, b=8, h=24, kvh=8, d=128,
     b_ms, b_by = bound(nbytes, 4 * d * pairs, "bf16_tensor")
     view = f"dense-view S={cap}" if dense_view else f"bs={bs}"
     res = {"case": f"{view},T={T},b={b},{kv_dtype},fragmented="
-                   f"{not dense_view}",
+                   f"{not dense_view},h={h},kvh={kvh},d={d}",
            "max_abs_err": err, "tol_used": used, "ok": ok and zeros_ok,
            "padding_rows_zero": zeros_ok, "controls": ctl,
            "ms": time_ms(lambda: paged_chunk_attention(q, kp, vp, bt, ps,
@@ -617,10 +685,14 @@ def check_flash_bwd(dev, *, b, sq, skv, h=24, kvh=8, d=128, q_offset=None,
                                 **kw)
     f_tile = attention_bwd_ref(q, k, v, do, lse, delta, causal=True,
                                q_offset=q_offset, kv_len=last)
-    one = torch.zeros(h, device=dev, dtype=bf)
-    one[::h // kvh] = 1
-    f_gqa = attention_bwd_ref(q, k, v, do * one[None, :, None, None], lse,
-                              delta * one[None, :, None].float(), **kw)
+    dkv_faults = {"delta dropped": f_delta[1:],
+                  "last key tile dropped": f_tile[1:]}
+    if h > kvh:
+        one = torch.zeros(h, device=dev, dtype=bf)
+        one[::h // kvh] = 1
+        dkv_faults["GQA sum over one head"] = attention_bwd_ref(
+            q, k, v, do * one[None, :, None, None], lse,
+            delta * one[None, :, None].float(), **kw)[1:]
 
     def both(name, pair, refs):
         (e1, u1, ok1), (e2, u2, ok2) = (compare(name, a, r)
@@ -660,9 +732,7 @@ def check_flash_bwd(dev, *, b, sq, skv, h=24, kvh=8, d=128, q_offset=None,
             f"h={h},kvh={kvh},d={d}")
     out = {}
     for name, pair, refs, faults, fn, nbytes, ops in (
-            ("flash_attention_bwd_dkv", (dk, dv), (rk, rv),
-             {"delta dropped": f_delta[1:], "last key tile dropped":
-              f_tile[1:], "GQA sum over one head": f_gqa[1:]},
+            ("flash_attention_bwd_dkv", (dk, dv), (rk, rv), dkv_faults,
              lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw),
              2 * qb + 2 * kb + rows_b + 2 * b * kvh * skv * d * 2,
              8 * d * pairs),
@@ -702,23 +772,31 @@ def check_flash_bwd(dev, *, b, sq, skv, h=24, kvh=8, d=128, q_offset=None,
 def backward_kernel_phase(dev):
     """The four backward kernels, each against its plain function: the
     training step's shapes first (rmsnorm 4096 x 3072, flash b 2 x 2048
-    causal), then a decode-sized rmsnorm and ragged flash cases."""
+    causal), then a decode-sized rmsnorm and ragged flash cases, then
+    zamba2-1.2b's training shapes (rmsnorm over d_inner 4096 and d 2048,
+    flash with 32 heads of 64, no grouping)."""
     cases = {n: [] for n in ("rmsnorm_bwd_dx", "rmsnorm_bwd_dw",
                              "flash_attention_bwd_dkv",
                              "flash_attention_bwd_dq")}
-    for n in (4096, 8):
-        for name, row in check_rmsnorm_bwd(dev, n, 3072).items():
+    for n, d in ((4096, 3072), (8, 3072), (4096, 4096), (4096, 2048)):
+        for name, row in check_rmsnorm_bwd(dev, n, d).items():
             cases[name].append(row)
     for kw in (dict(b=2, sq=2048, skv=2048),
                dict(b=1, sq=1000, skv=1000),
                dict(b=1, sq=448, skv=512, q_offset=64, kv_len=480),
-               dict(b=1, sq=512, skv=512, d=64)):
+               dict(b=1, sq=512, skv=512, d=64),
+               dict(b=2, sq=2048, skv=2048, h=32, kvh=32, d=64)):
         for name, row in check_flash_bwd(dev, **kw).items():
             cases[name].append(row)
     return cases
 
 
 def kernel_phase(dev):
+    """The forward kernels at phi4-mini-3.8b's shapes, then at
+    zamba2-1.2b's (the gated rmsnorm over d_inner 4096 and the pre-norms
+    over d 2048; the shared block's attention, 32 heads of 64 without
+    grouping: fresh prefill, decode tick, prefill chunk, and a 256-token
+    continuation chunk against the dense-cache view)."""
     cases = {"rmsnorm": [], "flash_attention": [],
              "paged_chunk_attention": []}
     for n in (8, 4096):
@@ -733,6 +811,15 @@ def kernel_phase(dev):
     for T, b in ((1, 8), (16, 8), (256, 1)):
         pc.append(check_paged(dev, kv_dtype="bfloat16", T=T, bs=0, b=b,
                               dense_view=True))
+    hd64 = dict(h=32, kvh=32, d=64)
+    for d in (4096, 2048):
+        cases["rmsnorm"].append(check_rmsnorm(dev, 4096, d))
+    for sq in (512, 2048):
+        cases["flash_attention"].append(check_flash(dev, sq, sq, **hd64))
+    for T in (1, 16):
+        pc.append(check_paged(dev, kv_dtype="bfloat16", T=T, bs=16, **hd64))
+    pc.append(check_paged(dev, kv_dtype="bfloat16", T=256, bs=0, b=1,
+                          dense_view=True, **hd64))
     return cases
 
 
@@ -886,6 +973,255 @@ def gating_phase(dev):
     return cases
 
 
+# ------------------------------ SSD chunk scan -------------------------------
+
+
+def ssd_inputs(dev, b, l, h, c, dtype, p=64, n=64, seed=8):
+    """x, a, B, C, dy and dL/dh_final on the card.  a is drawn in
+    [-2/c, 0], so the state carried across a chunk keeps at least e^-2
+    of itself: a dropped carry or an ignored dh_final shows (under the
+    model's init, a ~ -1.9 per step, no state survives a chunk)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, l, h, p, device=dev, generator=g).to(dtype)
+    a = -torch.rand(b, l, h, device=dev, generator=g) * (2.0 / c)
+    B = (torch.randn(b, l, n, device=dev, generator=g) / n ** 0.5).to(dtype)
+    C = (torch.randn(b, l, n, device=dev, generator=g) / n ** 0.5).to(dtype)
+    dy = torch.randn(b, l, h, p, device=dev, generator=g).to(dtype)
+    dhf = torch.randn(b, h, p, n, device=dev, generator=g)
+    return x, a, B, C, dy, dhf
+
+
+def ssd_verdict(outs, refs, faulty):
+    """Each output against its plain version: max |difference| over max
+    |plain| within SSD_REL_TOL of the output's dtype.  ``faulty`` {fault:
+    {output: plain version with the fault}}: each fault must fail the
+    gate on one of its outputs (``caught``)."""
+    import torch
+
+    def rel(name, got, ref):
+        tol = SSD_REL_TOL["fp32" if got.dtype == torch.float32 else "bf16"]
+        g, r = got.float(), ref.float()
+        err = float((g - r).abs().max())
+        used = err / max(float(r.abs().max()), 1e-30) / tol
+        return err, used, used <= 1 and bool(torch.isfinite(g).all())
+
+    rows = {k: rel(k, v, refs[k]) for k, v in outs.items()}
+    ctl = []
+    for fault, frefs in faulty.items():
+        res = [rel(k, outs[k], r) for k, r in frefs.items()]
+        ctl.append({"fault": fault,
+                    "max_abs_err": max(e for e, _, _ in res),
+                    "tol_used": max(u for _, u, _ in res),
+                    "caught": not all(ok for _, _, ok in res)})
+    return {"max_abs_err": max(e for e, _, _ in rows.values()),
+            "tol_used": max(u for _, u, _ in rows.values()),
+            "ok": all(ok for _, _, ok in rows.values()),
+            "outputs": {k: {"max_abs_err": e, "tol_used": u}
+                        for k, (e, u, _) in rows.items()},
+            "controls": ctl}
+
+
+def ssd_fwd_faults(x, a, B, C, c, ry):
+    """Plain forwards with a planted fault: the diagonal of L masked out
+    (y without its s = l term, (C_l . B_l) x_l), and, over several chunks,
+    the carried state dropped between chunks (each chunk from zero)."""
+    from repro_torch.kernels.ssd_scan import ssd_fwd_ref
+    diag = (C.float() * B.float()).sum(-1)[:, :, None, None] * x.float()
+    out = {"diagonal of L masked out": {"y": (ry.float() - diag).to(ry.dtype)}}
+    b, l = x.shape[:2]
+    if l > c:
+        per = [t.reshape(b * (l // c), c, *t.shape[2:]) for t in (x, a, B, C)]
+        out["carried state dropped between chunks"] = {
+            "y": ssd_fwd_ref(*per, c)[0].reshape(x.shape)}
+    return out
+
+
+def ssd_da_shifted(da, c):
+    """da's reverse cumsum shifted by one row: sum over u > t within the
+    chunk instead of u >= t."""
+    import torch
+    b, l, h = da.shape
+    d = da.reshape(b, l // c, c, h)
+    return torch.cat([d[:, :, 1:], torch.zeros_like(d[:, :, :1])],
+                     2).reshape(b, l, h)
+
+
+# planted faults of the SSD backward: the outputs each one shows in
+SSD_BWD_FAULTS = {"dh_final ignored": ("dx", "da", "dB", "dC"),
+                  "da's reverse cumsum shifted by one row": ("da",),
+                  "dB summed over half the heads": ("dB",)}
+
+
+def ssd_faulty_bwd(fault, x, a, B, C, hprev, dy, dhfin, chunk):
+    """The plain SSD backward (dx, da, dB, dC), with ``fault`` (a key of
+    SSD_BWD_FAULTS) planted when given; "dB summed over half the heads"
+    takes dB from a backward whose odd heads' dy and dh_final are 0."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_bwd_ref
+    if fault == "dh_final ignored":
+        dhfin = torch.zeros_like(dhfin)
+    dx, da, dB, dC = ssd_bwd_ref(x, a, B, C, hprev, dy, dhfin, chunk)
+    if fault == "da's reverse cumsum shifted by one row":
+        da = ssd_da_shifted(da, chunk)
+    elif fault == "dB summed over half the heads":
+        even = torch.arange(dy.shape[2], device=dy.device) % 2 == 0
+        dB = ssd_bwd_ref(x, a, B, C, hprev, dy * even[:, None].to(dy.dtype),
+                         dhfin * even[:, None, None], chunk)[2]
+    return dx, da, dB, dC
+
+
+def ssd_bwd_faults(x, a, B, C, hprev, dy, dhf, c):
+    """{fault: {output: plain backward with the fault}} over
+    SSD_BWD_FAULTS, each on the outputs it shows in."""
+    names = ("dx", "da", "dB", "dC")
+    out = {}
+    for fault, shows in SSD_BWD_FAULTS.items():
+        got = dict(zip(names, ssd_faulty_bwd(fault, x, a, B, C, hprev, dy,
+                                             dhf, c)))
+        out[fault] = {k: got[k] for k in shows}
+    return out
+
+
+def ssd_work(b, l, h, c, p=64, n=64):
+    """Multiply-adds the SSD scan needs, (forward, backward), each as
+    {peak: count}.  C B^T (the causal pairs times n) is shared by all
+    heads (B and C have one group), so it counts once per (batch, chunk);
+    the rest counts per (batch, head, chunk).  Products of two bf16
+    inputs (C B^T, and backward dy x^T: the pairs times p) are priced at
+    the bf16 tensor-core rate, the products with an fp32 operand (L, the
+    carried state) at the fp32 rate: forward, the pairs times p (the
+    weighted sum of x) plus 2 c p n (the carried state's two terms);
+    backward, the pairs times 2 n + p (dx, dB, dC) plus 4 c p n (the
+    carried state's four terms)."""
+    pairs = c * (c + 1) // 2
+    chunks = b * (l // c)
+    cb = chunks * pairs * n
+    return ({"bf16_tensor": cb,
+             "fp32": chunks * h * (pairs * p + 2 * c * p * n)},
+            {"bf16_tensor": cb + chunks * h * pairs * p,
+             "fp32": chunks * h * (pairs * (2 * n + p) + 4 * c * p * n)})
+
+
+def check_ssd(dev, b, l, h, c, dtype="bfloat16", train=False):
+    """Forward and backward kernel against their plain functions on the
+    same inputs: y, h_final and (over several chunks) h_prev; dx, da, dB,
+    dC from the plain forward's h_prev, and chained from the kernel
+    forward's own h_prev.  Planted faults as in ``ssd_fwd_faults`` /
+    ``ssd_bwd_faults``.  The forward is timed as its caller runs it:
+    saving h_prev for training, not for a prefill."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (ssd_bwd_ref, ssd_fwd_ref,
+                                              ssd_scan)
+    from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_bwd,
+                                                     ssd_scan_fwd)
+    dt = getattr(torch, dtype)
+    x, a, B, C, dy, dhf = ssd_inputs(dev, b, l, h, c, dt)
+    y, hfin, hprev = ssd_scan_fwd(x, a, B, C, chunk=c, save_hprev=True)
+    ry, rh, rhp = ssd_fwd_ref(x, a, B, C, c)
+    outs, refs = {"y": y, "h_final": hfin}, {"y": ry, "h_final": rh,
+                                             "h_prev": rhp}
+    if l > c:
+        outs["h_prev"] = hprev
+    fwd = ssd_verdict(outs, refs, ssd_fwd_faults(x, a, B, C, c, ry))
+    names = ("dx", "da", "dB", "dC")
+    rg = dict(zip(names, ssd_bwd_ref(x, a, B, C, rhp, dy, dhf, c)))
+    bwd = ssd_verdict(
+        dict(zip(names, ssd_scan_bwd(x, a, B, C, rhp, dy, dhf, chunk=c))),
+        rg, ssd_bwd_faults(x, a, B, C, rhp, dy, dhf, c))
+    bwd["chained"] = ssd_verdict(
+        dict(zip(names, ssd_scan_bwd(x, a, B, C, hprev, dy, dhf, chunk=c))),
+        rg, {})
+    del y, hfin, hprev
+    es = x.element_size()
+    f_flops, b_flops = ({k: 2 * v for k, v in w.items()}
+                        for w in ssd_work(b, l, h, c))
+    f_bytes = ((2 * x.numel() + B.numel() + C.numel()) * es + a.numel() * 4
+               + rh.numel() * 4 + (rhp.numel() * 4 if train else 0))
+    b_bytes = ((3 * x.numel() + 2 * (B.numel() + C.numel())) * es
+               + 2 * a.numel() * 4 + (rhp.numel() + dhf.numel()) * 4)
+    case = f"b={b},l={l},h={h},p=64,n=64,c={c},{dtype}" + (
+        ",saves h_prev (training)" if train else "")
+    none = "none: no single PyTorch call computes an SSD chunk scan"
+    op_host, wrapper_host = host_ms_pair(
+        lambda: ssd_scan(x, a, B, C, chunk=c),
+        lambda: ssd_scan_fwd(x, a, B, C, chunk=c, save_hprev=train))
+    fwd.update({"case": case,
+                "ms": time_ms(lambda: ssd_scan_fwd(x, a, B, C, chunk=c,
+                                                   save_hprev=train)),
+                "host_ms": op_host, "host_ms_wrapper": wrapper_host,
+                "plain_ms": time_ms(lambda: ssd_fwd_ref(x, a, B, C, c), 3),
+                "library_ms": None, "library_covers": none,
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound(f_bytes, f_flops)))})
+    bk = lambda: ssd_scan_bwd(x, a, B, C, rhp, dy, dhf, chunk=c)  # noqa
+    bwd.update({"case": case, "ms": time_ms(bk), "host_ms": host_ms(bk),
+                "plain_ms": time_ms(lambda: ssd_bwd_ref(x, a, B, C, rhp, dy,
+                                                        dhf, c), 3),
+                "library_ms": None, "library_covers": none,
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound(b_bytes, b_flops)))})
+    return {"ssd_scan": fwd, "ssd_scan_bwd": bwd}
+
+
+def check_ssd_padded(dev, l=777, c=256, h=64):
+    """A prompt length that is not a chunk multiple, through ``ops.
+    ssd_scan`` (which pads to 1024 with zero x, a, B, C): y, h_final and
+    the gradients of sum(y * dy) + sum(h_final * dh) through the SSDScan
+    Function (both kernels) against autograd of the plain chunked scan
+    on the same inputs padded by hand."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.ssm_common import ssd_chunked
+    x, a, B, C, dy, dhf = ssd_inputs(dev, 1, l, h, c, torch.bfloat16)
+    l_p = -(-l // c) * c
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, a, B, C)]
+        y, hf = fn(*leaves)
+        loss = (y.float() * dy.float()).sum() + (hf * dhf).sum()
+        return {"y": y.detach(), "h_final": hf.detach(),
+                **dict(zip(("dx", "da", "dB", "dC"),
+                           torch.autograd.grad(loss, leaves)))}
+
+    def plain(*t):
+        padded = [F.pad(v, [0, 0] * (v.dim() - 2) + [0, l_p - l]) for v in t]
+        y, hf = ssd_chunked(*padded, c)
+        return y[:, :l], hf
+
+    got, ref = run(lambda *t: ssd_scan(*t, chunk=c)), run(plain)
+    case = f"b=1,l={l} (padded to {l_p}),h={h},p=64,n=64,c={c},bfloat16"
+    fwd = ssd_verdict({k: got[k] for k in ("y", "h_final")}, ref, {})
+    bwd = ssd_verdict({k: got[k] for k in ("dx", "da", "dB", "dC")}, ref, {})
+    return {"ssd_scan": {"case": case, **fwd},
+            "ssd_scan_bwd": {"case": case, "reference": "autograd of the "
+                             "plain chunked scan", **bwd}}
+
+
+# the first case of each kernel is the training step (the row the kernel
+# summary reports), then whole-prompt prefills of zamba2's serving trace
+SSD_CASES = [dict(b=2, l=2048, h=64, c=256, train=True),
+             dict(b=1, l=1024, h=64, c=256), dict(b=1, l=200, h=64, c=200),
+             dict(b=1, l=768, h=64, c=256),
+             dict(b=1, l=512, h=64, c=256, dtype="float32")]
+
+
+def ssd_phase(dev):
+    """Both SSD chunk-scan kernels at zamba2-1.2b's shapes (64 heads of
+    64, state 64): the training step (b 2 x 2048), prefills of 1024 (4
+    chunks), 200 (one chunk of 200) and 768 (the head of a 777-token
+    prompt), one fp32 case, and a 777-token prompt through the padding
+    wrapper."""
+    cases = {"ssd_scan": [], "ssd_scan_bwd": []}
+    for kw in SSD_CASES:
+        for name, row in check_ssd(dev, **kw).items():
+            cases[name].append(row)
+    for name, row in check_ssd_padded(dev).items():
+        cases[name].append(row)
+    return cases
+
+
 # ------------------------------- end to end ---------------------------------
 
 
@@ -936,11 +1272,25 @@ def e2e_run(model, params, prompts, arrivals, dev, prefill_chunk, gen=32,
     return out, res["tokens"]
 
 
+def cat_batch(trees):
+    """Per-sequence state trees (batch 1 each) joined along the batch."""
+    import torch
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: cat_batch([t[k] for t in trees]) for k in t0}
+    if isinstance(t0, list):
+        return [cat_batch([t[i] for t in trees]) for i in range(len(t0))]
+    return torch.cat(trees, 0)
+
+
 def teacher_forced(model, params, prompts, forced, dev, n_ticks=4, bs=16,
                    prefill_chunk=0):
     """First-token logits (fresh or chunked prefill) and ``n_ticks``
     decode ticks fed ``forced`` tokens through a fragmented paged pool;
-    returns fp32 logits (1 + n_ticks, b, V)."""
+    returns fp32 logits (1 + n_ticks, b, V).  Prefill follows the
+    engine: attention-only families pad to a power-of-two bucket, the
+    hybrid runs exact-length chunks and its mamba states ride into the
+    decode ticks beside the pool."""
     import numpy as np
     import torch
     from repro_torch.serving.paged_cache import PagedKVCache
@@ -948,17 +1298,22 @@ def teacher_forced(model, params, prompts, forced, dev, n_ticks=4, bs=16,
     b = len(prompts)
     lens = [len(p) for p in prompts]
     need = [-(-(n + n_ticks) // bs) for n in lens]
-    cache = PagedKVCache(layers=cfg.n_layers, n_blocks=sum(need) + 1,
-                         block_size=bs, kv_heads=cfg.n_kv_heads,
-                         head_dim=cfg.head_dim, device=dev)
+    cache = PagedKVCache(layers=model.paged_kv_layers,
+                         n_blocks=sum(need) + 1, block_size=bs,
+                         kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                         device=dev)
+    keys = tuple(model.paged_state_extras(1, device=dev))
     perm = (np.random.default_rng(5).permutation(sum(need)) + 1).tolist()
     blocks = [[perm.pop() for _ in range(n)] for n in need]
-    first = []
+    first, extras = [], []
     for p, blk in zip(prompts, blocks):
         s = len(p)
-        cap = 1 << max(4, (s - 1).bit_length())
-        C = min(prefill_chunk or cap, cap)
-        cap = -(-cap // C) * C
+        if model.prefill_padding_ok:
+            cap = 1 << max(4, (s - 1).bit_length())
+            C = min(prefill_chunk or cap, cap)
+            cap = -(-cap // C) * C
+        else:
+            cap, C = s, prefill_chunk or s
         state = model.init_seq_state(params, cap, batch_size=1,
                                      dtype=cfg.compute_dtype, device=dev)
         toks = torch.zeros(1, cap, dtype=torch.int32, device=dev)
@@ -971,9 +1326,11 @@ def teacher_forced(model, params, prompts, forced, dev, n_ticks=4, bs=16,
             if lo + C >= s:
                 break
         first.append(logits[0].float())
+        extras.append({k: state[k] for k in keys})
         cache.write_prompt(state["k"][:, 0, :s], state["v"][:, 0, :s],
                            blk[:-(-s // bs)])
         del state
+    extras = cat_batch(extras) if keys else {}
     out = [torch.stack(first)]
     width = 1 << (max(need) - 1).bit_length()
     tables = np.zeros((b, width), np.int32)
@@ -986,8 +1343,9 @@ def teacher_forced(model, params, prompts, forced, dev, n_ticks=4, bs=16,
         ln = torch.as_tensor([n + t for n in lens], dtype=torch.int32,
                              device=dev)
         state = {"k": cache.k, "v": cache.v, "block_tables": bt,
-                 "lengths": ln}
-        _, logits = model.forward(params, state, tok, ln[:, None])
+                 "lengths": ln, **extras}
+        state, logits = model.forward(params, state, tok, ln[:, None])
+        extras = {k: state[k] for k in keys}
         out.append(logits.float())
     return torch.stack(out)
 
@@ -1208,13 +1566,15 @@ def fault_row(fault, gating, r):
     return row
 
 
-def train_steps(model, params, cfg, dev, kernels, n_flop_params, label):
+def train_steps(model, params, cfg, dev, kernels, n_flop_params, label,
+                attn_layers=None, extra_flops=0):
     """AdamW (warmup_cosine(3e-4, 2, TRAIN_STEPS), fp32 masters and
     moments) for TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ synthetic
     tokens through ``parallel.plan.make_train_step``, the launch counters
     zeroed before and read after, then one step under the profiler.
     MFU counts 6 * n_flop_params * tokens + 12 * L * h * d * causal
-    pairs.  Returns (results, failures); frees the state."""
+    pairs (L: ``attn_layers``, default every layer) + ``extra_flops``.
+    Returns (results, failures); frees the state."""
     import statistics
 
     import torch
@@ -1248,8 +1608,9 @@ def train_steps(model, params, cfg, dev, kernels, n_flop_params, label):
     tokens = B * S
     med = statistics.median(times)
     pairs = B * causal_pairs(S, S, 0, S)
+    L = cfg.n_layers if attn_layers is None else attn_layers
     flops = 6 * n_flop_params * tokens + \
-        12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * pairs
+        12 * L * cfg.n_heads * cfg.head_dim * pairs + extra_flops
     prof = profiled(lambda: float(step(state, train_batch(
         cfg, dev, TRAIN_STEPS))[1]["loss"]))
     out = {"batch": B, "seq": S, "steps": TRAIN_STEPS, "losses": losses,
@@ -1564,6 +1925,322 @@ def moe_train_phase(dev):
     return out, failures
 
 
+# --------------------------------- hybrid -----------------------------------
+
+
+def ssd_carry_dropped(fwd):
+    """The planted fault of the hybrid serving path: the SSD forward
+    ``fwd`` run on each chunk alone (the carried state dropped between
+    chunks; h_final is the last chunk's)."""
+    def dropped(x, a, B, C, *, chunk, save_hprev=False):
+        b, l = x.shape[:2]
+        per = [t.reshape(b * (l // chunk), chunk, *t.shape[2:])
+               for t in (x, a, B, C)]
+        y, hf = fwd(*per, chunk=chunk)
+        return y.reshape(x.shape), hf.reshape(b, l // chunk,
+                                              *hf.shape[1:])[:, -1]
+    return dropped
+
+
+def ssd_forward_probe(fwd):
+    """A stand-in for ``ops.ssd_scan_fwd`` on the serving path: each call
+    runs ``fwd`` (the kernel, or one with a planted fault) and the plain
+    forward on the same inputs, records y and h_final against the plain
+    ones (``ssd_verdict``) and returns ``fwd``'s.  Returns (stand-in,
+    list of per-call verdicts)."""
+    from repro_torch.kernels.ssd_scan import ssd_fwd_ref
+    calls = []
+
+    def probe(x, a, B, C, *, chunk, save_hprev=False):
+        got = fwd(x, a, B, C, chunk=chunk, save_hprev=save_hprev)
+        ry, rh = ssd_fwd_ref(x, a, B, C, chunk)[:2]
+        calls.append(ssd_verdict({"y": got[0], "h_final": got[1]},
+                                 {"y": ry, "h_final": rh}, {}))
+        return got
+    return probe, calls
+
+
+def slow_decay(params):
+    """``params`` with every Mamba layer's A_log set to SLOW_A_LOG."""
+    import torch
+    m = params["mamba"]
+    return {**params, "mamba": {
+        **m, "A_log": torch.full_like(m["A_log"], SLOW_A_LOG)}}
+
+
+def hybrid_serve_phase(dev):
+    """zamba2-1.2b at full width and depth (38 Mamba-2 layers, the shared
+    block 6 times; random bf16 weights drawn on the card from SEED)
+    serves the phi4 trace over its own vocabulary, whole-prompt and in
+    prefill chunks of 256, through exact-length prefill chunks and
+    per-slot mamba state pools; every serving kernel, the SSD scan
+    included, must launch: 38 times per prompt (every whole-prompt
+    prefill, and the first chunk of a chunked one; at least that when
+    evictions replay prefills).  Then the kernel path against two
+    references on the same prompts and forced tokens (first-token logits
+    and 4 decode ticks through a fragmented paged pool): the SSD scan
+    only (ssm_impl "ref", every other kernel on) within
+    HYBRID_SSD_LOGIT_ULPS bf16 ulps with identical greedy tokens, which
+    the SSD kernel with its carry dropped must fail, and the whole plain
+    path within HYBRID_E2E_REL_TOL; both bf16 paths against the fp32
+    forward are recorded.  Then on slow-decay weights (SLOW_A_LOG),
+    whole prompts: every SSD forward call held at the op, and the same
+    two logits gates; the dropped carry must fail the op gate and the
+    SSD-only one."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.serve import build
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, model, params = build(HYBRID_ARCH, device=dev, seed=SEED)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    prompts, arrivals = request_set(cfg.vocab_size)
+    e2e_run(model, params, [prompts[0][:64], prompts[4][:80]], [0, 0], dev,
+            0, gen=4, kernels=HYBRID_SERVING_KERNELS)
+    runs, tokens, failures = [], None, []
+    for chunk in (0, 256):
+        out, toks = e2e_run(model, params, prompts, arrivals, dev, chunk,
+                            kernels=HYBRID_SERVING_KERNELS)
+        want, got = cfg.n_layers * len(prompts), out["launches"]["ssd_scan"]
+        # a replayed request prefills again: then at least ``want``
+        out["ssd_scan_launches_expected"] = (
+            want if out["evictions"] == 0 else f">= {want} "
+            f"({out['evictions']} evictions replayed)")
+        if got < want or (out["evictions"] == 0 and got != want):
+            failures.append(f"hybrid serving (prefill_chunk={chunk}): "
+                            f"ssd_scan launched {got} times, expected "
+                            f"{out['ssd_scan_launches_expected']}")
+        runs.append(out)
+        tokens = tokens or toks
+        print(json.dumps({"hybrid_e2e": out}), flush=True)
+    ssd_ref = build_model(dataclasses.replace(cfg, ssm_impl="ref"))
+    plain = build_model(dataclasses.replace(cfg, attn_impl="ref",
+                                            norm_impl="ref", ssm_impl="ref"))
+    f32 = build_model(dataclasses.replace(
+        cfg, compute_dtype="float32", attn_impl="ref", norm_impl="ref",
+        ssm_impl="ref"))
+    dropped = [(ssd_ops, "ssd_scan_fwd",
+                ssd_carry_dropped(ssd_ops.ssd_scan_fwd))]
+
+    def forced(m, p, chunk=0, patches=()):
+        return with_patches(list(patches), lambda: teacher_forced(
+            m, p, prompts, tokens, dev, prefill_chunk=chunk))
+
+    def against_fp32(p, got, ref, **labels):
+        # both bf16 paths against the plain forward in fp32 on fp32
+        # copies of the same weights (recorded: what the gates sit in)
+        p32 = {k: ({kk: vv.float() for kk, vv in v.items()}
+                   if isinstance(v, dict) else v.float())
+               for k, v in p.items()}
+        truth = forced(f32, p32)
+        del p32
+        return [r for route, x in (("kernel path vs fp32 forward", got),
+                                   ("plain path vs fp32 forward", ref))
+                for r in logit_rows(x, truth, HYBRID_E2E_REL_TOL,
+                                    route=f"{route} (recorded)", **labels)]
+
+    cmp, recorded, controls = [], [], []
+    for chunk in (0, 256):
+        got, ref = forced(model, params, chunk), forced(ssd_ref, params, chunk)
+        cmp += logit_rows(got, ref, bf16_ulps=HYBRID_SSD_LOGIT_ULPS,
+                          same_argmax=True, route="ssd only",
+                          prefill_chunk=chunk)
+        if chunk == 0:
+            rows = logit_rows(forced(model, params, patches=dropped), ref,
+                              bf16_ulps=HYBRID_SSD_LOGIT_ULPS,
+                              same_argmax=True, route="ssd only",
+                              prefill_chunk=0)
+            controls.append({"fault": "SSD kernel with its carry dropped",
+                             "check": "ssd only logits",
+                             "tol_used": max(r["tol_used"] for r in rows),
+                             "caught": not all(r["ok"] for r in rows)})
+        ref = forced(plain, params, chunk)
+        cmp += logit_rows(got, ref, HYBRID_E2E_REL_TOL, route="whole path",
+                          prefill_chunk=chunk)
+        if chunk == 0:
+            recorded += against_fp32(params, got, ref, prefill_chunk=0)
+        del got, ref
+
+    # slow decay: the carried state matters; whole prompts
+    slow = slow_decay(params)
+    probe, calls = ssd_forward_probe(ssd_ops.ssd_scan_fwd)
+    got = forced(model, slow, patches=[(ssd_ops, "ssd_scan_fwd", probe)])
+    slow_op = op_summary(calls)
+    probe, calls = ssd_forward_probe(ssd_carry_dropped(ssd_ops.ssd_scan_fwd))
+    bad = forced(model, slow, patches=[(ssd_ops, "ssd_scan_fwd", probe)])
+    bad_op = op_summary(calls)
+    controls.append({"fault": "SSD kernel with its carry dropped",
+                     "check": "slow decay, each SSD forward call at the op",
+                     "tol_used": bad_op["tol_used"],
+                     "caught": not bad_op["ok"]})
+    ref = forced(ssd_ref, slow)
+    lab = dict(prefill_chunk=0, weights="slow decay")
+    cmp += logit_rows(got, ref, bf16_ulps=HYBRID_SSD_LOGIT_ULPS,
+                      same_argmax=True, route="ssd only", **lab)
+    rows = logit_rows(bad, ref, bf16_ulps=HYBRID_SSD_LOGIT_ULPS,
+                      same_argmax=True, route="ssd only", **lab)
+    controls.append({"fault": "SSD kernel with its carry dropped",
+                     "check": "slow decay, ssd only logits",
+                     "tol_used": max(r["tol_used"] for r in rows),
+                     "caught": not all(r["ok"] for r in rows)})
+    del bad
+    ref = forced(plain, slow)
+    cmp += logit_rows(got, ref, HYBRID_E2E_REL_TOL, route="whole path",
+                      **lab)
+    recorded += against_fp32(slow, got, ref, **lab)
+    del got, ref, slow
+    for c in cmp + recorded:
+        print(json.dumps({"hybrid_e2e_vs_plain": c}), flush=True)
+    print(json.dumps({"hybrid_slow_decay_op": slow_op,
+                      "hybrid_serve_controls": controls}), flush=True)
+    prof = profiled(lambda: e2e_run(model, params, prompts, arrivals, dev, 0,
+                                    kernels=HYBRID_SERVING_KERNELS))
+    print(json.dumps({"hybrid_profile": prof}), flush=True)
+    out = {"arch": HYBRID_ARCH, "params": n_params,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "runs": runs, "vs_plain": cmp, "slow_decay_op": slow_op,
+           "controls": controls, "recorded": recorded,
+           "ssd_only_bf16_ulps": HYBRID_SSD_LOGIT_ULPS,
+           "rel_tol": HYBRID_E2E_REL_TOL, "profile": prof}
+    del params
+    torch.cuda.empty_cache()
+    failures += [f"hybrid serving {c['route']}: {c}" for c in cmp
+                 if not c["ok"]]
+    if not slow_op["ok"]:
+        failures.append(f"hybrid serving, slow decay: an SSD forward call "
+                        f"failed the op gate: {slow_op}")
+    failures += [f"hybrid serving: planted fault '{c['fault']}' passed "
+                 f"the {c['check']}" for c in controls if not c["caught"]]
+    return out, failures
+
+
+# planted faults of the SSD backward on the training path (dh_final
+# ignored cannot show there: training never reads h_final, so its
+# cotangent is zero)
+SSD_TRAIN_FAULTS = ("da's reverse cumsum shifted by one row",
+                    "dB summed over half the heads")
+
+
+def ssd_backward_probe(fault=None):
+    """A stand-in for ``ops.ssd_scan_bwd``: each call runs the backward
+    kernel and the plain backward (with ``fault``) on the same saved
+    inputs, records the kernel's outputs against the plain ones
+    (``ssd_verdict``) and returns the plain ones — the plain SSD
+    backward in place of the kernel's, the forward untouched.  Returns
+    (stand-in, list of per-call verdicts)."""
+    from repro_torch.kernels.ssd_scan import kernel
+    names = ("dx", "da", "dB", "dC")
+    calls = []
+
+    def bwd(x, a, B, C, hprev, dy, dhfin, *, chunk):
+        got = kernel.ssd_scan_bwd(x, a, B, C, hprev, dy, dhfin, chunk=chunk)
+        ref = ssd_faulty_bwd(fault, x, a, B, C, hprev, dy, dhfin, chunk)
+        calls.append(ssd_verdict(dict(zip(names, got)),
+                                 dict(zip(names, ref)), {}))
+        return ref
+    return bwd, calls
+
+
+def op_summary(calls):
+    return {"calls": len(calls),
+            "tol_used": max(c["tol_used"] for c in calls),
+            "ok": all(c["ok"] for c in calls)}
+
+
+def hybrid_train_phase(dev):
+    """zamba2-1.2b at full width and depth trains on the card (nothing
+    cut): random bf16 weights drawn on the card from SEED, batches of
+    TRAIN_BATCH x TRAIN_SEQ.  On one batch, the kernel path against (1)
+    the plain path (attention, rmsnorm and SSD "ref") at the training
+    gates, and (2) the kernel forward with the plain SSD backward in
+    place of the kernel's (the forward bitwise the same): each backward
+    call's kernel outputs within SSD_REL_TOL of the plain ones on the
+    same inputs, which the planted SSD-backward faults must fail, and
+    every Mamba leaf within TRAIN_GRAD_REL_TOL (faults recorded there).
+    Then ``train_steps``: launches per step must be
+    2 x 38 forward (the recompute of remat included) and 38 backward.
+    MFU counts the shared block once per invocation and the SSD scan's
+    multiply-adds, forward and backward (``ssd_work``)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.zamba import n_attn_invocations
+    from repro_torch.train_lib import loss_and_grads
+    cfg = get_arch(HYBRID_ARCH)
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev, dtype="bfloat16")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    inv = n_attn_invocations(cfg)
+    shared = sum(p.numel() for p in params["shared"].values())
+    n_flop = n_params + (inv - 1) * shared
+    b0 = train_batch(cfg, dev, 0)
+    mamba_leaves = tuple(f"mamba/{k}" for k in params["mamba"])
+
+    # (1) the kernel path against the plain path
+    plain = build_model(dataclasses.replace(cfg, attn_impl="ref",
+                                            norm_impl="ref", ssm_impl="ref"))
+    lp, _, gp = loss_and_grads(plain, params, b0)
+    lp = float(lp)
+    vs_plain = loss_grads_against(model, params, b0, lp, gp)
+    vs_plain["ok"] = vs_plain.pop("within") and math.isfinite(lp)
+    print(json.dumps({"hybrid_train_vs_plain": vs_plain}), flush=True)
+    del gp
+
+    # (2) the plain SSD backward in place of the kernel's, held at the op
+    # and at the Mamba leaves; then each planted fault the same way
+    probe, calls = ssd_backward_probe()
+    lr, _, gr = with_patches([(ssd_ops, "ssd_scan_bwd", probe)],
+                             lambda: loss_and_grads(model, params, b0))
+    lr = float(lr)
+    kw = dict(loss_tol=MOE_GATE_LOSS_TOL, leaves=mamba_leaves)
+    bwd = loss_grads_against(model, params, b0, lr, gr, **kw)
+    bwd["op"] = op_summary(calls)
+    bwd["ok"] = bwd.pop("within") and bwd["op"]["ok"]
+    print(json.dumps({"hybrid_train_vs_plain_ssd_backward": bwd}), flush=True)
+    bwd["controls"] = []
+    for fault in SSD_TRAIN_FAULTS:
+        probe, calls = ssd_backward_probe(fault)
+        r = loss_grads_against(model, params, b0, lr, gr,
+                               [(ssd_ops, "ssd_scan_bwd", probe)], **kw)
+        op = op_summary(calls)
+        row = {"fault": fault, "caught": not op["ok"],
+               "op_tol_used": op["tol_used"],
+               "leaves_caught": not r["within"],
+               "grad_rel_max": r["grad_rel_max"],
+               "grad_rel_max_leaf": r["grad_rel_max_leaf"]}
+        print(json.dumps({"train_fault": row}), flush=True)
+        bwd["controls"].append(row)
+    del gr
+    checks = {"vs_plain": vs_plain, "vs_plain_ssd_backward": bwd}
+    s = cfg.ssm
+    ssd_macs = sum(sum(w.values()) for w in ssd_work(
+        TRAIN_BATCH, TRAIN_SEQ, s.expand * cfg.d_model // s.head_dim,
+        s.chunk_size, s.head_dim, s.state_size))
+    out, failures = train_steps(model, params, cfg, dev, HYBRID_TRAIN_KERNELS,
+                                n_flop, "hybrid_train", attn_layers=inv,
+                                extra_flops=2 * ssd_macs * cfg.n_layers)
+    out = {"arch": HYBRID_ARCH, "params": n_params,
+           "flop_params": n_flop, **out, **checks}
+    want = {"ssd_scan": 2 * cfg.n_layers, "ssd_scan_bwd": cfg.n_layers}
+    for k, v in want.items():
+        if out["launches_per_step"][k] != v:
+            failures.append(f"hybrid training: {k} launched "
+                            f"{out['launches_per_step'][k]} times per step, "
+                            f"expected {v}")
+    for name, r in checks.items():
+        if not r["ok"]:
+            failures.append(f"hybrid training {name}: loss_rel "
+                            f"{r['loss_rel']}, worst grad_rel "
+                            f"{r['grad_rel_max']} ({r['grad_rel_max_leaf']})")
+    failures += [f"hybrid training: planted fault '{f['fault']}' passed the "
+                 f"SSD backward's op gate"
+                 for f in checks["vs_plain_ssd_backward"]["controls"]
+                 if not f["caught"]]
+    return out, failures
+
+
 # ---------------------------------- main ------------------------------------
 
 
@@ -1609,8 +2286,18 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    cases = {**kernel_phase(dev), **backward_kernel_phase(dev),
-             **gating_phase(dev)}
+    def timed(name, fn):
+        t = now()
+        out = fn()
+        print(json.dumps({"phase": name, "seconds": now() - t}), flush=True)
+        return out
+
+    cases = {}
+    for name, phase in (("kernels", kernel_phase),
+                        ("backward kernels", backward_kernel_phase),
+                        ("gating kernels", gating_phase),
+                        ("ssd kernels", ssd_phase)):
+        cases.update(timed(name, lambda: phase(dev)))
     for name, rows in cases.items():
         for r in rows:
             print(json.dumps({"kernel": name, **r}), flush=True)
@@ -1629,35 +2316,47 @@ def main():
                              for f in c.get("controls", [])
                              if not f["caught"]]
 
-    e2e = e2e_phase(dev)
+    e2e = timed("phi4 serving", lambda: e2e_phase(dev))
     for c in e2e["vs_plain"]:
         if not c["ok"]:
             failures.append(f"e2e kernel vs plain: {c}")
     torch.cuda.empty_cache()
-    train, train_failures = train_phase(dev)
+    train, train_failures = timed("phi4 training", lambda: train_phase(dev))
     print(json.dumps({"train": train}), flush=True)
     failures += train_failures
     torch.cuda.empty_cache()
-    moe_e2e, moe_failures = moe_serve_phase(dev)
+    moe_e2e, moe_failures = timed("moe serving",
+                                  lambda: moe_serve_phase(dev))
     failures += moe_failures
-    moe_train, moe_failures = moe_train_phase(dev)
+    moe_train, moe_failures = timed("moe training",
+                                    lambda: moe_train_phase(dev))
     print(json.dumps({"moe_train": moe_train}), flush=True)
     failures += moe_failures
+    torch.cuda.empty_cache()
+    hybrid_e2e, hybrid_failures = timed("hybrid serving",
+                                        lambda: hybrid_serve_phase(dev))
+    failures += hybrid_failures
+    hybrid_train, hybrid_failures = timed("hybrid training",
+                                          lambda: hybrid_train_phase(dev))
+    print(json.dumps({"hybrid_train": hybrid_train}), flush=True)
+    failures += hybrid_failures
 
     # representative main-path case of each kernel: the decode tick for
     # rmsnorm (8 slots), paged attention (T = 1, bs 16, bf16) and top-k
     # gating (8 x 60, top-4), a 512-token fresh prefill for flash
     # attention, the training step (4096 x 3072 rows, b 2 x 2048 causal,
-    # 4096 x 60 gating) for the backward kernels.  launches: per run of
-    # each path that ran the kernel, counters zeroed before the run and
-    # read after
+    # 4096 x 60 gating, zamba2's b 2 x 2048 SSD scan) for the backward
+    # kernels and the SSD forward.  launches: per run of each path that
+    # ran the kernel, counters zeroed before the run and read after
     summary = []
     for name in KERNEL_META:
         r = cases[name][0]
         route, source, replaces = KERNEL_META[name]
         runs, per_step = {}, {}
-        for arch, serve, kernels in ((ARCH, e2e, DENSE_SERVING_KERNELS),
-                                     (MOE_ARCH, moe_e2e, SERVING_KERNELS)):
+        for arch, serve, kernels in (
+                (ARCH, e2e, DENSE_SERVING_KERNELS),
+                (MOE_ARCH, moe_e2e, SERVING_KERNELS),
+                (HYBRID_ARCH, hybrid_e2e, HYBRID_SERVING_KERNELS)):
             if name not in kernels:
                 continue
             for run in serve["runs"]:
@@ -1665,8 +2364,10 @@ def main():
                 runs[key] = run["launches"][name]
                 per_step[f"{key} (per engine step)"] = \
                     run["launches_per_step"][name]
-        for arch, tr, kernels in ((ARCH, train, TRAIN_KERNELS),
-                                  (MOE_ARCH, moe_train, MOE_TRAIN_KERNELS)):
+        for arch, tr, kernels in (
+                (ARCH, train, TRAIN_KERNELS),
+                (MOE_ARCH, moe_train, MOE_TRAIN_KERNELS),
+                (HYBRID_ARCH, hybrid_train, HYBRID_TRAIN_KERNELS)):
             if name in kernels:
                 runs[f"{arch} train {TRAIN_STEPS} steps"] = \
                     tr["launches"][name]
@@ -1687,19 +2388,22 @@ def main():
                                 ("arch", "params", "peak_mem_gb")}}),
           flush=True)
     for label, tr in (("train_summary", train),
-                      ("moe_train_summary", moe_train)):
+                      ("moe_train_summary", moe_train),
+                      ("hybrid_train_summary", hybrid_train)):
         print(json.dumps({label: {
             k: tr[k] for k in ("median_step_s", "tokens_per_s",
                                "mfu_vs_bf16_dense_peak", "peak_mem_gb",
                                "losses", "launches_per_step")}}),
             flush=True)
-    print(json.dumps({"moe_serve_summary": {
-        "peak_mem_gb": moe_e2e["peak_mem_gb"],
-        "device_busy_share": moe_e2e["profile"]["device_busy_share"],
-        "runs": [{k: run[k] for k in (
-            "prefill_chunk", "seconds", "tokens_per_s", "ttft_p50_s",
-            "ttft_p95_s", "tpot_p50_s", "tpot_p95_s", "engine_steps")}
-            for run in moe_e2e["runs"]]}}), flush=True)
+    for label, serve in (("moe_serve_summary", moe_e2e),
+                         ("hybrid_serve_summary", hybrid_e2e)):
+        print(json.dumps({label: {
+            "peak_mem_gb": serve["peak_mem_gb"],
+            "device_busy_share": serve["profile"]["device_busy_share"],
+            "runs": [{k: run[k] for k in (
+                "prefill_chunk", "seconds", "tokens_per_s", "ttft_p50_s",
+                "ttft_p95_s", "tpot_p50_s", "tpot_p95_s", "engine_steps",
+                "launches")} for run in serve["runs"]]}}), flush=True)
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)

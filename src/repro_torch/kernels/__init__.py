@@ -8,7 +8,7 @@ it drives a path and reads them after shows which kernels that path went
 through.
 """
 from repro_torch.kernels import flash_attention, paged_chunk_attention, \
-    rmsnorm, topk_gating
+    rmsnorm, ssd_scan, topk_gating
 
 KERNELS = {
     "rmsnorm": rmsnorm.LAUNCHES,
@@ -20,6 +20,8 @@ KERNELS = {
     "paged_chunk_attention": paged_chunk_attention.LAUNCHES,
     "topk_gating": topk_gating.LAUNCHES,
     "topk_gating_bwd": topk_gating.LAUNCHES_BWD,
+    "ssd_scan": ssd_scan.LAUNCHES,
+    "ssd_scan_bwd": ssd_scan.LAUNCHES_BWD,
 }
 
 

@@ -33,6 +33,7 @@ SOURCES = {
     "paged_chunk_attention":
         "paged_chunk_attention/csrc/paged_chunk_attention.cu",
     "topk_gating": "topk_gating/csrc/topk_gating.cu",
+    "ssd_scan": "ssd_scan/csrc/ssd_scan.cu",
 }
 _INCLUDE = _KERNELS / "csrc"
 

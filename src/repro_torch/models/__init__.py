@@ -1,4 +1,6 @@
-"""Models of the port (dense decoder-only family so far)."""
-from repro_torch.models.model_api import BaseLM, DecoderLM, build_model
+"""Models of the port: the dense and MoE decoder-only families and the
+Zamba2 hybrid."""
+from repro_torch.models.model_api import (BaseLM, DecoderLM, ZambaLM,
+                                          build_model)
 
-__all__ = ["BaseLM", "DecoderLM", "build_model"]
+__all__ = ["BaseLM", "DecoderLM", "ZambaLM", "build_model"]

@@ -1,5 +1,5 @@
-"""Model API (port of ``repro/models/model_api.py``), the dense and MoE
-decoder-only families.
+"""Model API (port of ``repro/models/model_api.py``): the dense and MoE
+decoder-only families and the Zamba2 hybrid.
 
   loss(params, batch) -> (loss, {"ce", "aux_loss"})      training
   init_seq_state(params, max_len, ...) -> SeqState        serving
@@ -9,8 +9,9 @@ decoder-only families.
 tick); ``positions`` (b, T) are absolute per-slot positions, negative =
 padding (not written, skipped by the last-token logit gather).  A state
 holding ``block_tables`` is a paged pool (``_forward_paged``); otherwise
-it is a dense cache {k, v} of shape (L, b, S, kv, hd).  Cache tensors
-are updated in place and returned in the new state.
+it is a dense cache {k, v} of shape (L, b, S, kv, hd) (the hybrid's
+also holds its per-layer mamba states).  Cache tensors are updated in
+place and returned in the new state.
 
 Parameter trees have the JAX package's keys and shapes, so
 ``bridge.params_from_numpy`` loads JAX-initialised weights directly.
@@ -23,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import zamba as zamba_mod
 from repro_torch.models.common import apply_norm, cross_entropy, norm_defs
 from repro_torch.models.params import init_tree, p
 from repro_torch.models.transformer import (_sub, attn_sublayer, chunk_layer,
@@ -101,7 +103,28 @@ class BaseLM:
 
     @property
     def prefill_padding_ok(self) -> bool:
+        """Whether padding tokens (positions < 0) may ride through a
+        chunk: True only when every sequence mixer is position-masked
+        attention.  A carried recurrence (SSD) would absorb the padding
+        into its state, so such families need exact-length chunks."""
         return False
+
+    def _paged_chunk_driver(self, params, tokens, positions, step_token,
+                            all_logits=False):
+        """Per-token scaffolding for paged forwards of families with a
+        carried recurrence (hybrid mamba states advance one token at a
+        time): embed token t, run ``step_token(x, pos) -> x`` (which
+        advances the pools / recurrent carries in its closure), then
+        gather per-slot last-valid logits (or project every row with
+        ``all_logits``).  Returns (logits, lengths)."""
+        T = positions.shape[1]
+        per_step = [step_token(self._embed(params, tokens[:, t])[:, None, :],
+                               positions[:, t])
+                    for t in range(T)]
+        x = torch.cat(per_step, dim=1) if T > 1 else per_step[0]
+        logits = self._chunk_logits(params, x, positions, all_logits)
+        lengths = positions.max(dim=1).values.to(torch.int32) + 1
+        return logits, lengths
 
 
 class DecoderLM(BaseLM):
@@ -227,8 +250,88 @@ class DecoderLM(BaseLM):
     def paged_kv_layers(self) -> int:
         return self.cfg.n_layers
 
+    def paged_state_extras(self, n_slots: int, device=None) -> dict:
+        return {}
 
-_NOT_PORTED = ("vlm", "hybrid", "ssm", "audio")
+
+class ZambaLM(BaseLM):
+    """Mamba2 backbone with one shared attention+MLP block
+    (``models.zamba``)."""
+
+    def param_defs(self):
+        defs = _embed_defs(self.cfg)
+        defs.update(zamba_mod.zamba_defs(self.cfg))
+        return defs
+
+    def loss(self, params, batch, remat=True):
+        """batch {"tokens", "labels"[, "mask"]} (b, s) -> (ce, {"ce"});
+        ``remat`` as in ``zamba.zamba_forward``."""
+        x = self._embed(params, batch["tokens"])
+        x = zamba_mod.zamba_forward(self.cfg, params, x, remat=remat)
+        ce = self._ce(params, x, batch["labels"], batch.get("mask"))
+        return ce, {"ce": ce}
+
+    def init_seq_state(self, params, max_len, *, batch=None,
+                       batch_size=None, dtype="bfloat16", device=None):
+        cfg = self.cfg
+        b = batch_size if batch_size is not None else len(batch["tokens"])
+        if device is None:
+            device = params["embed"].device
+        inv = zamba_mod.n_attn_invocations(cfg)
+        shape = (inv, b, max_len, cfg.n_kv_heads, cfg.head_dim)
+        dt = torch_dtype(dtype)
+        return {"mamba": zamba_mod.zamba_mamba_init(cfg, b,
+                                                    self.compute_dtype,
+                                                    device),
+                "k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def forward(self, params, state, tokens, positions, *, embeds=None,
+                fresh=False, all_logits=False):
+        """Advance ``state`` by one chunk; returns (state', logits (b, V)),
+        or (b, T, V) with ``all_logits``."""
+        if "block_tables" in state:
+            return self._forward_paged(params, state, tokens, positions,
+                                       all_logits=all_logits)
+        x = embeds if embeds is not None else self._embed(params, tokens)
+        x, mamba_states = zamba_mod.zamba_chunk(self.cfg, params, x,
+                                                positions, state,
+                                                fresh=fresh)
+        logits = self._chunk_logits(params, x, positions, all_logits)
+        return {**state, "mamba": mamba_states}, logits
+
+    def _forward_paged(self, params, state, tokens, positions,
+                       all_logits=False):
+        """Token by token against the paged pools (I, n_blocks, bs, kv,
+        hd), written in place, and the per-slot mamba states in
+        ``state["mamba"]``."""
+        cfg = self.cfg
+        tables = state["block_tables"]
+        mamba = state["mamba"]
+
+        def step_token(x, pos):
+            nonlocal mamba
+            x, mamba = zamba_mod.zamba_paged_step(
+                cfg, params, x, mamba, state["k"], state["v"], tables, pos,
+                state.get("k_scale"), state.get("v_scale"))
+            return x
+
+        logits, lengths = self._paged_chunk_driver(
+            params, tokens, positions, step_token, all_logits=all_logits)
+        return {**state, "mamba": mamba, "lengths": lengths}, logits
+
+    @property
+    def paged_kv_layers(self) -> int:
+        return zamba_mod.n_attn_invocations(self.cfg)
+
+    def paged_state_extras(self, n_slots: int, device=None) -> dict:
+        """Per-slot mamba state pools riding beside the paged KV blocks —
+        what lets the hybrid family join the paged path."""
+        return {"mamba": zamba_mod.zamba_mamba_init(
+            self.cfg, n_slots, self.compute_dtype, device)}
+
+
+_NOT_PORTED = ("vlm", "ssm", "audio")
 
 
 def build_model(cfg: ModelConfig, *, moe_group: int | None = None) -> BaseLM:
@@ -236,12 +339,15 @@ def build_model(cfg: ModelConfig, *, moe_group: int | None = None) -> BaseLM:
     size (default ``models.moe.DEFAULT_GROUP``)."""
     if cfg.family in ("dense", "moe"):
         return DecoderLM(cfg, moe_group=moe_group or moe_mod.DEFAULT_GROUP)
+    if cfg.family == "hybrid":
+        return ZambaLM(cfg)
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            f"repro_torch yet; only the dense and MoE families are")
+            f"repro_torch yet; only the dense, MoE and hybrid families "
+            f"are")
     raise ValueError(cfg.family)
 
 
-__all__ = ["BaseLM", "DecoderLM", "arange_positions", "build_model",
-           "last_valid_index"]
+__all__ = ["BaseLM", "DecoderLM", "ZambaLM", "arange_positions",
+           "build_model", "last_valid_index"]

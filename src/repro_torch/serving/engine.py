@@ -17,7 +17,13 @@ Each ``step``:
 
 Shapes follow the JAX engine so that both produce the same numbers: the
 block-table width and the prefill capacity are bucketed to powers of
-two, and prompts are padded to their bucket (position -1).  Eager
+two, and attention-only families pad prompts to their bucket (position
+-1).  The hybrid family, whose carried mamba recurrence would absorb
+padding, prefills in exact-length chunks instead, and its per-slot
+mamba states ride beside the paged KV blocks in the engine's extras
+pools (``model.paged_state_extras``): a finished prefill scatters its
+states into the slot, every decode tick carries them in the paged
+SeqState and reads them back, and a prefix hit restores them.  Eager
 PyTorch compiles nothing, so the JAX engine's trace counters have no
 meaning here; ``prefill_traces`` / ``decode_traces`` now count the
 distinct chunk shapes each path ran, which is what a captured-graph
@@ -39,8 +45,21 @@ from repro_torch.serving.paged_cache import PagedKVCache
 from repro_torch.serving.stats import serving_stats
 from repro_torch.telemetry import Registry, now, span
 
-_PAGED_FAMILIES = ("dense", "moe")
+_PAGED_FAMILIES = ("dense", "moe", "hybrid")
 _MASK64 = (1 << 63) - 1
+
+
+def _scatter_slot(pools, one, slot: int) -> None:
+    """Copy a batch-1 state tree ``one`` into row ``slot`` of the
+    matching per-slot pool tree, in place."""
+    if isinstance(pools, dict):
+        for k in pools:
+            _scatter_slot(pools[k], one[k], slot)
+    elif isinstance(pools, (list, tuple)):
+        for p_, o in zip(pools, one):
+            _scatter_slot(p_, o, slot)
+    else:
+        pools[slot].copy_(one[0])
 
 
 def _pow2_at_least(n: int, floor: int = 1) -> int:
@@ -128,12 +147,11 @@ class ServingEngine:
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                  kv_dtype: str | None = None, device=None):
         cfg = model.cfg
-        if cfg.family not in _PAGED_FAMILIES or not model.prefill_padding_ok:
+        if cfg.family not in _PAGED_FAMILIES:
             raise ValueError(f"paged serving of family {cfg.family!r} is "
-                             f"not ported (prompts are padded to their "
-                             f"capacity bucket, which needs a model that "
-                             f"masks padding)")
+                             f"not ported")
         self.device = resolve_device(device)
+        self.pad_prefill = model.prefill_padding_ok
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -149,6 +167,10 @@ class ServingEngine:
             block_size=block_size, kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim, dtype=pool_dtype, kv_dtype=kv_dtype,
             device=self.device)
+        # non-KV per-slot sequence state (hybrid mamba); {} otherwise
+        self._extras = model.paged_state_extras(max_slots,
+                                                device=self.device)
+        self._extras_keys = tuple(self._extras)
 
         self.metrics = Registry("engine")
         self._c_evictions = self.metrics.counter("engine.evictions")
@@ -230,19 +252,26 @@ class ServingEngine:
             self._queue.pop(0)
 
     def _prefill_chunks(self, prompt: np.ndarray, cap: int) -> list:
-        """Split a prompt into (tokens, positions) chunks, padded to the
-        capacity bucket with position -1."""
+        """Split a prompt into (tokens, positions) chunks: attention-only
+        families pad to the capacity bucket with position -1; families
+        with a carried recurrence get exact-length chunks."""
         s = len(prompt)
         C = min(self.prefill_chunk or cap, cap)
-        toks = np.zeros(cap, np.int32)
-        toks[:s] = prompt
-        pos = np.where(np.arange(cap) < s, np.arange(cap), -1).astype(
-            np.int32)
         chunks = []
-        for lo in range(0, cap, C):
-            chunks.append((toks[None, lo:lo + C], pos[None, lo:lo + C]))
-            if lo + C >= s:
-                break
+        if self.pad_prefill:
+            toks = np.zeros(cap, np.int32)
+            toks[:s] = prompt
+            pos = np.where(np.arange(cap) < s, np.arange(cap), -1).astype(
+                np.int32)
+            for lo in range(0, cap, C):
+                chunks.append((toks[None, lo:lo + C], pos[None, lo:lo + C]))
+                if lo + C >= s:
+                    break
+        else:
+            for lo in range(0, s, C):
+                hi = min(lo + C, s)
+                chunks.append((np.ascontiguousarray(prompt[None, lo:hi]),
+                               np.arange(lo, hi, dtype=np.int32)[None]))
         return [(torch.from_numpy(t).to(self.device),
                  torch.from_numpy(p).to(self.device)) for t, p in chunks]
 
@@ -256,7 +285,7 @@ class ServingEngine:
         if blocks is None:
             return None
         cap = _pow2_at_least(s, cache.block_size)
-        if self.prefill_chunk:
+        if self.pad_prefill and self.prefill_chunk:
             # every chunk the same shape: round the bucket up to a chunk
             # multiple so no ragged tail appears
             C = min(self.prefill_chunk, cap)
@@ -283,12 +312,15 @@ class ServingEngine:
         s = len(req.prompt)
         cache.write_prompt(job.state["k"][:, 0, :s], job.state["v"][:, 0, :s],
                            job.blocks)
+        extras1 = {k: job.state[k] for k in self._extras_keys}
         first = self._sample(req, job.logits[0], s)
         if self.share_prefixes and req.greedy:
-            cache.register_prefix(req.prompt, job.blocks, s, first)
-        self._occupy(req, job.blocks, s, first)
+            cache.register_prefix(req.prompt, job.blocks, s, first,
+                                  extras=extras1 or None)
+        self._occupy(req, job.blocks, s, first, extras1)
 
-    def _occupy(self, req: Request, blocks, length: int, first: int) -> None:
+    def _occupy(self, req: Request, blocks, length: int, first: int,
+                extras1: dict | None) -> None:
         req.blocks = blocks
         req.length = length
         req.tokens = [first]
@@ -304,6 +336,8 @@ class ServingEngine:
             self._done[req.rid] = req
             return
         req.slot = self._slots.index(None)
+        if extras1:
+            _scatter_slot(self._extras, extras1, req.slot)
         self._admission_seq += 1
         req.admitted_at = self._admission_seq
         req.status = "running"
@@ -446,16 +480,17 @@ class ServingEngine:
         jlen = torch.from_numpy(lengths).to(dev)
         state = {"k": self.cache.k, "v": self.cache.v,
                  "block_tables": torch.from_numpy(tables).to(dev),
-                 "lengths": jlen}
+                 "lengths": jlen, **self._extras}
         if self.cache.quantized:
             state["k_scale"] = self.cache.k_scale
             state["v_scale"] = self.cache.v_scale
         self._decode_shapes.add(width)
         with span("engine.decode_tick"):
             # the pools are updated in place (the JAX engine donates them)
-            _, logits = self.model.forward(
+            state, logits = self.model.forward(
                 self.params, state, torch.from_numpy(tokens).to(dev)[:, None],
                 jlen[:, None])
+        self._extras = {k: state[k] for k in self._extras_keys}
         if all(r.greedy for r in active):
             # one (max_slots,) transfer, not (max_slots, vocab)
             next_toks = torch.argmax(logits, dim=-1).cpu().numpy()

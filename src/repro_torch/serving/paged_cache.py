@@ -11,8 +11,10 @@ list of physical block ids and logical position ``p`` lives at block
 * refcounts — a block rejoins the free list when its last owner drops
   it, which makes prefix sharing safe;
 * a prefix index — hash(prompt) -> (block ids, length, first greedy
-  token).  A hit shares the full blocks by reference and copies only
-  the trailing partial block (copy-on-write).
+  token, extras).  A hit shares the full blocks by reference and copies
+  only the trailing partial block (copy-on-write); ``extras`` is the
+  non-KV state after the prompt (the hybrid's mamba states), which
+  blocks cannot reconstruct.
 
 Pool writes are in place: where the JAX cache rebinds donated buffers,
 the port updates its one copy.  Quantized pools (float8_e4m3, int8)
@@ -65,7 +67,7 @@ class PagedKVCache:
         self.refcount = np.zeros(n_blocks, np.int64)
         self.refcount[0] = 1                       # scratch, never freed
         self._free = list(range(n_blocks - 1, 0, -1))   # pop() -> low ids
-        # key -> (block ids, length, first greedy token)
+        # key -> (block ids, length, first greedy token, extras)
         self._prefix: dict[str, tuple] = {}
         self._prefix_lru: list[str] = []
         self.hits = 0
@@ -144,28 +146,30 @@ class PagedKVCache:
     # --------------------------- prefix sharing ----------------------------
 
     def register_prefix(self, tokens: np.ndarray, block_ids, length: int,
-                        first_token: int) -> None:
+                        first_token: int, extras=None) -> None:
         """Pin ``block_ids`` (incref) under the prompt's hash so later
         identical prompts restore by reference; ``first_token`` is the
-        greedy continuation, which blocks cannot reconstruct."""
+        greedy continuation and ``extras`` the non-KV sequence state
+        (None for attention-only families), neither of which the blocks
+        can reconstruct."""
         key = _prefix_key(tokens)
         if key in self._prefix:
             return
         self.incref(block_ids)
-        self._prefix[key] = (tuple(block_ids), length, first_token)
+        self._prefix[key] = (tuple(block_ids), length, first_token, extras)
         self._prefix_lru.append(key)
 
     def lookup_prefix(self, tokens: np.ndarray):
-        """Exact-prompt hit -> (block_ids, length, first_token) with the
-        new sequence holding its own references; None on a miss.  Full
-        blocks are shared; a partial trailing block is copied, because
-        the restored sequence appends into it."""
+        """Exact-prompt hit -> (block_ids, length, first_token, extras)
+        with the new sequence holding its own references; None on a
+        miss.  Full blocks are shared; a partial trailing block is
+        copied, because the restored sequence appends into it."""
         key = _prefix_key(tokens)
         ent = self._prefix.get(key)
         if ent is None:
             self.misses += 1
             return None
-        ids, length, first_token = ent
+        ids, length, first_token, extras = ent
         if length % self.block_size == 0:
             self.incref(ids)
             blocks = list(ids)
@@ -182,7 +186,7 @@ class PagedKVCache:
         self.hits += 1
         self._prefix_lru.remove(key)          # refresh LRU position
         self._prefix_lru.append(key)
-        return blocks, length, first_token
+        return blocks, length, first_token, extras
 
     def reclaim(self, n_blocks: int, *, keep: tuple = ()) -> bool:
         """Release LRU prefix entries until ``n_blocks`` are allocatable;

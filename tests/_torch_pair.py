@@ -80,14 +80,16 @@ def jax_mesh():
     return jax.make_mesh((1, 1), ("data", "model"), axis_types=auto)
 
 
-def train_both(arch, microbatch, n_steps, b, s, n_layers=2):
+def train_both(arch, microbatch, n_steps, b, s, n_layers=2,
+               plan_step=None):
     """The quickstart setting (``arch`` smoke, fp32, AdamW with
     warmup_cosine(3e-3, 2, 20), fp32 params) stepped in both packages
     from the same weights on the same synthetic batches; returns (JAX
-    losses, port losses, JAX state, port state).  One step runs the JAX
-    package's gspmd step (``train_lib``) compiled here; more run its
-    ``parallel.plan.make_train_step``, from a state placed on the step's
-    shardings so that it compiles once."""
+    losses, port losses, JAX state, port state).  The JAX side runs its
+    ``parallel.plan.make_train_step`` (``plan_step``, by default when
+    n_steps > 1), from a state placed on the step's shardings so that it
+    compiles once, or else the gspmd step that plan jits
+    (``train_lib``), compiled here with ``FAST_XLA``."""
     import jax
     import jax.numpy as jnp
 
@@ -113,7 +115,7 @@ def train_both(arch, microbatch, n_steps, b, s, n_layers=2):
     batches = [batch_for_model(tcfg, "train", i, b, s)
                for i in range(n_steps)]
     jbatches = [{k: jnp.asarray(v) for k, v in x.items()} for x in batches]
-    if n_steps == 1:
+    if not (n_steps > 1 if plan_step is None else plan_step):
         jstep = compiled(train_lib.make_train_step(
             jm, jopt, jpl.gspmd_config(), mesh), jstate, jbatches[0])
     else:
@@ -127,3 +129,22 @@ def train_both(arch, microbatch, n_steps, b, s, n_layers=2):
         tl.append(float(tmet["loss"]))
         assert set(tmet) == set(jmet)
     return jl, tl, jstate, tstate
+
+
+def max_rel_close(got, want, name="", tol=1e-5):
+    """|got - want| within ``tol`` of max |want|."""
+    got, want = np.asarray(got), np.asarray(want)
+    scale = float(np.abs(want).max())
+    assert scale > 0, name
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale, (name, err, scale)
+
+
+def slow_decay(jp):
+    """Mamba A_log set to log(0.05) in a JAX parameter tree (in place):
+    a = -0.05 * dt per step, so a carried state survives a chunk (under
+    the init rule's A_log = 1, a ~ -1.9 per step, none does and a
+    dropped or stale carry hides)."""
+    tree = jp["mamba"] if "mamba" in jp else jp
+    tree["A_log"] = np.full_like(tree["A_log"], np.log(0.05))
+    return jp

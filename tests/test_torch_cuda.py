@@ -215,6 +215,84 @@ def test_topk_gating_kernels_match_plain_on_card(cuda, T, E, k, renorm,
             xb, eb, dw, k).float(), atol=1e-2, rtol=1e-2)
 
 
+def _ssd_inputs(b, l, h, c, dtype, device, p=64, n=64):
+    """a in [-2/c, 0]: the carried state keeps at least e^-2 of itself
+    across a chunk, so the carry and dh_final count."""
+    g = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(b, l, h, p, device=device, generator=g).to(dtype)
+    a = -torch.rand(b, l, h, device=device, generator=g) * (2.0 / c)
+    B = (torch.randn(b, l, n, device=device, generator=g) / n ** 0.5).to(
+        dtype)
+    C = (torch.randn(b, l, n, device=device, generator=g) / n ** 0.5).to(
+        dtype)
+    dy = torch.randn(b, l, h, p, device=device, generator=g).to(dtype)
+    dhf = torch.randn(b, h, p, n, device=device, generator=g)
+    return x, a, B, C, dy, dhf
+
+
+def _rel_close(got, want, tol):
+    err = (got.float() - want.float()).abs().max()
+    assert err <= tol * want.float().abs().max(), (float(err), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,c,dtype", [
+    (2, 512, 8, 256, "bfloat16"), (1, 200, 8, 200, "bfloat16"),
+    (1, 300, 4, 100, "float32"), (1, 96, 3, 32, "float32")])
+def test_ssd_scan_kernels_match_plain_on_card(cuda, b, l, h, c, dtype):
+    """Forward kernel: y, h_final and h_prev against the plain forward;
+    backward kernel: dx, da, dB, dC against the plain reverse-recurrence
+    backward on the same h_prev, dy and dh_final.  Max |difference| over
+    max |plain| within 1e-2 for bf16 outputs and 1e-4 for fp32 ones (as
+    chip_smoke.py holds them); the same backward twice is bitwise the
+    same (no atomics)."""
+    from repro_torch.kernels.ssd_scan import ssd_bwd_ref, ssd_fwd_ref
+    from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_bwd,
+                                                     ssd_scan_fwd)
+    dt = getattr(torch, dtype)
+    x, a, B, C, dy, dhf = _ssd_inputs(b, l, h, c, dt, cuda)
+    tol = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+    y, hf, hp = ssd_scan_fwd(x, a, B, C, chunk=c, save_hprev=True)
+    ry, rh, rhp = ssd_fwd_ref(x, a, B, C, c)
+    for got, want in ((y, ry), (hf, rh), (hp, rhp)):
+        if want.abs().max() > 0:
+            _rel_close(got, want, tol[got.dtype])
+    grads = ssd_scan_bwd(x, a, B, C, rhp, dy, dhf, chunk=c)
+    for got, want in zip(grads, ssd_bwd_ref(x, a, B, C, rhp, dy, dhf, c)):
+        assert got.dtype == want.dtype
+        _rel_close(got, want, tol[got.dtype])
+    for g1, g2 in zip(grads, ssd_scan_bwd(x, a, B, C, rhp, dy, dhf,
+                                          chunk=c)):
+        assert torch.equal(g1, g2)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_function_launches_both_kernels(cuda):
+    """ops.ssd_scan on a 300-token sequence (padded to 512 by the
+    wrapper) launches the forward kernel, and its gradient the backward
+    kernel, once each; y, h_final and the gradients agree with autograd
+    of the O(l^2) closed form (no chunks, no padding)."""
+    from repro_torch.kernels.ssd_scan import (LAUNCHES, LAUNCHES_BWD,
+                                              ssd_quadratic_ref, ssd_scan)
+    x, a, B, C, dy, dhf = _ssd_inputs(1, 300, 4, 256, torch.float32, cuda)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, a, B, C)]
+        y, hf = fn(*leaves)
+        loss = (y * dy).sum() + (hf * dhf).sum()
+        return (y, hf, *torch.autograd.grad(loss, leaves))
+
+    def closed(x, a, B, C):
+        s = torch.cumsum(a, 1)
+        return ssd_quadratic_ref(x, a, B, C), torch.einsum(
+            "bsh,bshp,bsn->bhpn", torch.exp(s[:, -1:] - s), x, B)
+    n_fwd, n_bwd = LAUNCHES.value, LAUNCHES_BWD.value
+    got = run(lambda *t: ssd_scan(*t, chunk=256))
+    assert (LAUNCHES.value, LAUNCHES_BWD.value) == (n_fwd + 1, n_bwd + 1)
+    for g, w in zip(got, run(closed)):
+        _rel_close(g.detach(), w.detach(), 1e-4)
+
+
 @pytest.mark.cuda
 def test_two_train_steps_through_the_kernels(cuda):
     """A 2-layer phi4-mini smoke model in bf16 takes two AdamW steps

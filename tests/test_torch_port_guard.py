@@ -54,6 +54,18 @@ def test_guard_scans_the_moe_slice():
         assert m in mods, m
 
 
+def test_guard_scans_the_hybrid_slice():
+    """The import and source scans reach the hybrid family's modules and
+    the SSD chunk-scan kernel's."""
+    mods = _port_modules()
+    for m in ("repro_torch.models.ssm_common", "repro_torch.models.mamba2",
+              "repro_torch.models.zamba", "repro_torch.kernels.ssd_scan",
+              "repro_torch.kernels.ssd_scan.kernel",
+              "repro_torch.kernels.ssd_scan.ops",
+              "repro_torch.kernels.ssd_scan.ref"):
+        assert m in mods, m
+
+
 def test_port_sources_never_name_the_jax_package():
     pat = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
                      r"(\.|\s))", re.M)
@@ -105,8 +117,7 @@ def test_entry_points_need_cuda_or_explicit_cpu(no_cuda):
 def test_unported_families_raise():
     from repro_torch.configs.registry import smoke_config
     from repro_torch.models import build_model
-    for arch in ("zamba2-1.2b", "xlstm-125m", "whisper-base",
-                 "internvl2-76b"):
+    for arch in ("xlstm-125m", "whisper-base", "internvl2-76b"):
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(smoke_config(arch))
 
