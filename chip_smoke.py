@@ -69,6 +69,20 @@ Phases (any failure exits non-zero and prints no result line):
    gradients against the plain path and against the plain SSD backward
    in place of the kernel's (with planted SSD-backward faults), then 8
    AdamW steps as in 4, with the SSD kernels' launches per step checked.
+9. HaiScale DDP training: gpt2-medium at full width and depth (24
+   layers, d 1024) as 8 ranks sharing the card, 2 pods x 4 data, each
+   rank 2 x 1024 tokens, gloo collectives staged through pinned host
+   memory (``core.grid.Grid(stage="host")``, spawned by
+   ``testing.multidev.run_ranks``).  Gates on step 1's synced gradient:
+   (i) uncompressed against one process on the whole global batch, (ii)
+   overlap on against off, bitwise, (iii) the int8 wire through the
+   kernels against the plain quantizer, bitwise, (iv) int8 against
+   uncompressed within the quantization bound, (v) planted faults (the
+   prescale dropped, a strong rank's shard missing from phase 3, a
+   bucket's hook one leaf early) that (i) or (ii) must catch; then 8
+   steps with each of the uncompressed and int8 wires (overlap on, every
+   kernel's launches counted from the ranks), one with overlap off, and
+   the hfreduce of the whole gradient with each wire format.
 
 The kernel cases of phase 2 include both top-k gating kernels at the
 MoE shapes (qwen2-moe's decode, prefill and training rows, 64 experts
@@ -77,9 +91,14 @@ chunk-scan kernels at zamba2's shapes (the training step, prefills of
 1024, 200 and 768 tokens, one fp32 case, a 777-token prompt through
 the padding wrapper) with planted faults (the carried state dropped,
 the diagonal of L masked, dh_final ignored, da's reverse cumsum shifted
-by a row, dB summed over half the heads), and the reused forward and
+by a row, dB summed over half the heads), the reused forward and
 backward kernels at zamba2's shapes (head dim 64, rmsnorm over 4096 and
-2048).
+2048), and the int8 quantize / dequantize kernels at the DDP wire's
+shapes (one bucket's weak shard, the whole per-rank payload, zero
+blocks, values on code boundaries, a length the wrapper pads), held
+bitwise against their plain versions, with planted faults (truncation,
+the reciprocal multiply, the absmax over half the block with and
+without the clip, a neighbour's scale).
 
 Every result is printed as one JSON object per line.  The last line is
 {"ok": true, "device": {...}}; the line before it lists every kernel's
@@ -211,6 +230,12 @@ KERNEL_META = {
     "ssd_scan_bwd": (
         "cuda", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan/kernel.py:195"),
+    "quantize": ("cuda",
+                 "src/repro_torch/kernels/quant_comm/csrc/quant_comm.cu",
+                 "src/repro/kernels/quant_comm/kernel.py:34"),
+    "dequantize": ("cuda",
+                   "src/repro_torch/kernels/quant_comm/csrc/quant_comm.cu",
+                   "src/repro/kernels/quant_comm/kernel.py:55"),
 }
 DENSE_SERVING_KERNELS = ("rmsnorm", "flash_attention",
                          "paged_chunk_attention")
@@ -2244,6 +2269,619 @@ def hybrid_train_phase(dev):
 # ---------------------------------- main ------------------------------------
 
 
+
+# ---------------------- int8 quantize / dequantize --------------------------
+
+# the gpt2-medium DDP path's int8 weak phase: each rank's weak shard of a
+# 25 MB bf16 bucket holds 25 MiB / 2 B / 4 strong ranks = 3 276 800
+# elements, and the whole gradient's weak shards 353 553 408 / 4
+QBLOCK = 256
+BUCKET_SHARD = 25 * 1024 * 1024 // 2 // 4
+WEAK_PAYLOAD = 353_553_408 // 4
+
+
+def _quant_plain(x, fault=None):
+    """The plain quantizer (``quant_comm.ref``'s arithmetic, written out
+    so that a planted fault can change one step of it)."""
+    import torch
+    n = x.shape[0]
+    xb = x.reshape(n // QBLOCK, QBLOCK).float()
+    amax = xb.abs()
+    if fault and "half the block" in fault:
+        amax = amax[:, :QBLOCK // 2]
+    scale = amax.amax(dim=1, keepdim=True) * torch.tensor(1 / 127,
+                                                          dtype=torch.float32)
+    den = torch.clamp(scale, min=1e-12)
+    if fault == "x * (1/scale) in place of division":
+        r = torch.round(xb * (1.0 / den))
+    elif fault == "truncation in place of half-even rounding":
+        r = torch.trunc(xb / den)
+    else:
+        r = torch.round(xb / den)
+    if fault != "absmax over half the block, clip at ±127 dropped":
+        r = torch.clamp(r, -127, 127)
+    return r.to(torch.int8).reshape(n), scale[:, 0]
+
+
+def _quant_library(x):
+    """The nearest PyTorch composition (no one call quantizes
+    blockwise): view -> abs().amax -> mul -> div -> round -> clamp ->
+    to(int8)."""
+    import torch
+    xb = x.view(-1, QBLOCK).float()
+    s = xb.abs().amax(dim=1, keepdim=True) * (1 / 127)
+    q = (xb / s.clamp(min=1e-12)).round().clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
+def _dequant_library(q, s, dtype):
+    """to(float) -> mul, in the output dtype."""
+    import torch
+    return (q.view(-1, QBLOCK).to(torch.float32) * s[:, None]).to(dtype)
+
+
+def quant_inputs(dev, kind, n, dtype, seed=9):
+    """Gradient-like values (normal times a log-normal spread), blocks of
+    zeros, or values on k + 0.5 code boundaries of their block's scale
+    (the absmax planted in each block's last element)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "boundary":
+        nb = n // QBLOCK
+        A = torch.exp(torch.rand(nb, 1, device=dev, generator=g) * 9 - 6)
+        s = A * torch.tensor(1 / 127, dtype=torch.float32)
+        k = torch.randint(-127, 127, (nb, QBLOCK), device=dev, generator=g)
+        x = (k.float() + 0.5) * s
+        x[:, -1] = A[:, 0]
+        return x.reshape(-1).to(dtype)
+    x = torch.randn(n, device=dev, generator=g) * torch.exp(
+        torch.randn(n, device=dev, generator=g))
+    if kind == "zeros":
+        x.view(-1, QBLOCK)[::3] = 0
+    return x.to(dtype)
+
+
+def bitwise(got, ref):
+    """A bitwise gate: max |difference| (0 when the bits agree), and
+    tol_used 0 or inf."""
+    import torch
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    err = max(float((a.float() - b.float()).abs().max()) if a.numel() else
+              0.0 for a, b in zip(got, ref))
+    return err, (0.0 if same else math.inf), same
+
+
+def check_quant(dev, kind, n, dtype, pad_to=1):
+    """quantize and dequantize (to fp32 and to bf16) against the plain
+    versions on the same inputs, bitwise; planted faults must differ:
+    truncation, the reciprocal multiply (boundary case), the absmax over
+    half the block with and without the clip at ±127 (there the block's
+    absmax is not among the values the faulty max saw, so only the clip
+    keeps the codes in range; with the block's own absmax no finite input
+    reaches the clip: |x| / fl(A fl(1/127)) <= 127 (1 + 2^-22)), and the
+    dequantize with each block scaled by its neighbour's scale."""
+    import torch
+    from repro_torch.core.compression import _padded
+    from repro_torch.kernels.quant_comm import (dequantize, dequantize_ref,
+                                                quantize, quantize_ref)
+    x = quant_inputs(dev, kind, n, dtype)
+    if pad_to > 1:                 # the int8 wire's padding (int8_psum)
+        x, _ = _padded(x, pad_to, keep=(dtype,))
+    n = x.shape[0]
+    q, s = quantize(x)
+    rq, rs = quantize_ref(x)
+    err, used, ok = bitwise((q, s), (rq, rs))
+    faults = ["truncation in place of half-even rounding",
+              "absmax over half the block, clip kept",
+              "absmax over half the block, clip at ±127 dropped"]
+    if kind == "boundary":
+        faults.append("x * (1/scale) in place of division")
+    ctl = []
+    for f in faults:
+        fe, fu, fok = bitwise((q, s), _quant_plain(x, f))
+        ctl.append({"fault": f, "max_abs_err": fe, "tol_used": fu,
+                    "caught": not fok, "codes_differing":
+                    int((q != _quant_plain(x, f)[0]).sum())})
+    case = f"{kind} n={n} {str(dtype).split('.')[-1]}"
+    fwd = {"case": case, "max_abs_err": err, "tol_used": used, "ok": ok,
+           "codes_differing": int((q != rq).sum()), "controls": ctl}
+    in_b = x.element_size()
+    for rec, fn, plain, lib, nbytes in (
+            (fwd, lambda: quantize(x), lambda: quantize_ref(x),
+             lambda: _quant_library(x), n * (in_b + 1) + n // QBLOCK * 4),):
+        rec.update(_quant_times(fn, plain, lib, nbytes, n))
+    bwd = []
+    for out_dtype in (torch.bfloat16, torch.float32):
+        d = dequantize(q, s, out_dtype=out_dtype)
+        rd = dequantize_ref(q, s, out_dtype)
+        e2, u2, ok2 = bitwise((d,), (rd,))
+        fd = dequantize_ref(q, torch.roll(s, 1), out_dtype)
+        fe, fu, fok = bitwise((d,), (fd,))
+        rec = {"case": f"{case} -> {str(out_dtype).split('.')[-1]}",
+               "max_abs_err": e2, "tol_used": u2, "ok": ok2, "controls": [
+                   {"fault": "each block scaled by its neighbour's scale",
+                    "max_abs_err": fe, "tol_used": fu, "caught": not fok}]}
+        out_b = d.element_size()
+        rec.update(_quant_times(
+            lambda: dequantize(q, s, out_dtype=out_dtype),
+            lambda: dequantize_ref(q, s, out_dtype),
+            lambda: _dequant_library(q, s, out_dtype),
+            n * (1 + out_b) + n // QBLOCK * 4, n))
+        bwd.append(rec)
+    return fwd, bwd
+
+
+def _quant_times(fn, plain, lib, nbytes, n):
+    b_ms, b_by = bound(nbytes, 4 * n, "fp32")
+    return {"ms": time_ms(fn), "host_ms": host_ms(fn),
+            "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
+            "library_covers": "the nearest PyTorch composition (no one "
+                              "call quantizes blockwise), the same ops as "
+                              "the plain version",
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+
+
+QUANT_CASES = [dict(kind="gradient", n=BUCKET_SHARD, dtype="bfloat16"),
+               dict(kind="gradient", n=BUCKET_SHARD, dtype="float32"),
+               dict(kind="gradient", n=WEAK_PAYLOAD, dtype="bfloat16",
+                    pad_to=2 * QBLOCK),
+               dict(kind="zeros", n=QBLOCK * 4096, dtype="float32"),
+               dict(kind="boundary", n=QBLOCK * 4096, dtype="float32")]
+
+
+def quant_phase(dev):
+    """Both quant_comm kernels at the int8 weak phase's shapes: one
+    bucket's weak shard (bf16, as the path quantizes it, and fp32), the
+    whole per-rank weak payload padded as the wire pads it, blocks of
+    zeros and values on code boundaries; then a length only the
+    wrapper's padding takes (``int8_roundtrip``)."""
+    import torch
+    from repro_torch.core.compression import int8_roundtrip
+    cases = {"quantize": [], "dequantize": []}
+    for kw in QUANT_CASES:
+        kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
+        fwd, bwd = check_quant(dev, **kw)
+        cases["quantize"].append(fwd)
+        cases["dequantize"] += bwd
+        torch.cuda.empty_cache()
+    x = quant_inputs(dev, "gradient", 1_000_003, torch.float32)
+    err, used, ok = bitwise((int8_roundtrip(x),),
+                            (int8_roundtrip(x, impl="ref"),))
+    cases["quantize"].append({"case": "int8_roundtrip n=1000003 -> "
+                              "1000192 by the wrapper", "max_abs_err": err,
+                              "tol_used": used, "ok": ok, "controls": []})
+    return cases
+
+
+# ------------------- HaiScale DDP: gpt2-medium, 8 ranks ---------------------
+
+# gpt2-medium (the paper's own HaiScale DDP model, Fig. 8) at full width
+# and depth trains as 8 ranks sharing the card: 2 pods x 4 data, each
+# rank a batch of 2 x 1024 tokens (global 16 x 1024), collectives staged
+# through pinned host memory over gloo (HFReduce's own path)
+DDP_ARCH = "gpt2-medium"
+DDP_PODS, DDP_DATA = 2, 4
+DDP_BATCH, DDP_SEQ, DDP_STEPS = 2, 1024, 8
+DDP_WIRES = ("", "bf16", "fp8", "int8")
+# gate (i), the synced uncompressed gradient against one process on the
+# global batch: the training gates above (both sides bf16; the synced one
+# adds 8 ranks' bf16 gradients in bf16 on the host)
+DDP_FAULTS = {
+    # fault -> the gate that must catch it
+    "prescale dropped": "i",
+    "one strong rank's shard left out of phase 3": "i",
+    "a bucket's hook fires one leaf early": "ii",
+}
+
+
+def ddp_global_batch(cfg, i):
+    from repro_torch.data.synthetic import batch_for_model
+    return batch_for_model(cfg, "train", i, DDP_BATCH * DDP_PODS * DDP_DATA,
+                           DDP_SEQ, seed=SEED)
+
+
+def _early_hook_step():
+    """A ``DDPStep`` whose first bucket starts its sync one leaf early:
+    the bucket's last leaf has no gradient yet when the bucket is
+    flattened, so it goes on the wire as zeros (what ``_flatten`` sends
+    for a leaf without a gradient)."""
+    from repro_torch.core.ddp import DDPStep
+
+    class EarlyHookStep(DDPStep):
+        def _flatten(self, leaves, b):
+            if b == 0:
+                i1 = self.ranges[0][1]
+                leaves = leaves[:i1 - 1] + [leaves[i1 - 1].detach()] + \
+                    leaves[i1:]
+            return super()._flatten(leaves, b)
+    return EarlyHookStep
+
+
+def _ddp_fault(fault, grid):
+    """(module, attribute, replacement) that plants ``fault`` in this
+    rank's DDP path; the early hook is a subclass of the step
+    (``_early_hook_step``), not a replacement."""
+    import importlib
+    ddp = importlib.import_module("repro_torch.core.ddp")
+    # the module: the package's attribute of that name is the function
+    hfreduce = importlib.import_module("repro_torch.core.hfreduce")
+    if fault == "prescale dropped":
+        orig = ddp.hfreduce
+        return ddp, "hfreduce", lambda x, **kw: orig(x, **{**kw,
+                                                          "prescale": None})
+    orig = hfreduce.all_gather
+
+    def gather(x, group):
+        out = orig(x, group)
+        if group is grid.strong:
+            out[x.shape[0]:2 * x.shape[0]] = 0
+        return out
+    return hfreduce, "all_gather", gather
+
+
+def _same_bits(a, b):
+    import torch
+    from repro_torch.models.params import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                  tree_leaves(b)))
+
+
+def _rel_leaves(got, ref):
+    """Per leaf |g - ref| / |ref| (Frobenius); ``ref`` leaves on the
+    host."""
+    from repro_torch.models.params import tree_leaves
+    out = []
+    for g, r in zip(tree_leaves(got), ref):
+        r = r.to(g.device).float()
+        out.append(float((g.float() - r).norm() / r.norm().clamp(min=1e-30)))
+    return out
+
+
+def _int8_bound(grid, flats):
+    """Gate (iv) on this rank's weak shards of every bucket (``flats``:
+    the buckets of the real local gradient on the bf16 wire): the int8
+    weak phase against the uncompressed one on the same prescaled shard,
+    element by element within 1/2 (s_pod0 + s_pod1 + s_requant)
+    (1 + 2^-8) + one bf16 ulp, where s_pod is each pod's 256-block scale
+    (absmax fl(1/127)) of the int8 wire's padded shard and s_requant the
+    reduced block's (max |out| / 127): half a code for each
+    quantization, half a bf16 ulp for each side's final rounding.  Also
+    times ``hfreduce`` over the whole gradient with each wire format
+    (run c) and returns each one's relative distance to the
+    uncompressed sync."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.compression import int8_psum, make_weak_psum
+    from repro_torch.core.grid import all_gather, all_reduce, reduce_scatter
+    from repro_torch.core.hfreduce import _pad_to, hfreduce
+    from repro_torch.telemetry import now
+    P, inv = grid.pods, torch.tensor(1.0 / grid.size, dtype=torch.bfloat16)
+    worst, n_el = 0.0, 0
+    for flat in flats:
+        shard = reduce_scatter(_pad_to(flat, grid.data)[0], grid.strong) * inv
+        m = shard.shape[0]
+        pad = (-m) % (P * QBLOCK)
+
+        def blocks(v):
+            return F.pad(v.float(), (0, pad)).reshape(-1, QBLOCK)
+        u = blocks(all_reduce(shard, grid.weak))
+        o = blocks(int8_psum(shard, grid.weak))
+        X = F.pad(all_gather(shard, grid.weak).reshape(P, -1).float(),
+                  (0, pad)).reshape(P, -1, QBLOCK)
+        s_pods = (X.abs().amax(-1) * torch.tensor(1 / 127)).sum(0)
+        del X
+        half = 0.5 * (s_pods + o.abs().amax(-1) / 127) * (1 + 2 ** -8)
+        ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(
+            o.abs(), u.abs()).clamp(min=1e-30))) - 7)
+        worst = max(worst, float(((o - u).abs() / (half[:, None] + ulp))
+                                 .max()))
+        n_el += m
+        del u, o, ulp
+    times, ref, sq = {}, None, {}
+    for wire in DDP_WIRES:
+        psum = make_weak_psum(wire)
+        torch.cuda.synchronize()
+        t0 = now()
+        outs = [hfreduce(f, strong=grid.strong, weak=grid.weak,
+                         weak_psum=psum, prescale=1.0 / grid.size)
+                for f in flats]
+        torch.cuda.synchronize()
+        times[wire] = now() - t0
+        if ref is None:
+            ref = outs
+        sq[wire] = sum(float((o.float() - r.float()).square().sum())
+                       for o, r in zip(outs, ref))
+        del outs
+    norm = sum(float(r.float().square().sum()) for r in ref)
+    return {"bound_used_max": worst, "ok": worst <= 1.0,
+            "weak_elements": n_el, "hfreduce_s": times,
+            "rel_to_uncompressed": {w: math.sqrt(v / norm)
+                                    for w, v in sq.items()}}
+
+
+def ddp_rank(grid, device, ref_path):
+    """One rank of the DDP phase: the gates on step 1's synced gradient,
+    then DDP_STEPS training steps with each of "" and "int8" (overlap
+    on), then one step with overlap off.  Returns numbers only; rank 0
+    also holds gate (i) against the one-process reference in
+    ``ref_path``."""
+    import statistics
+
+    import torch
+    from repro_torch import train_lib
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import bucketing
+    from repro_torch.core import ddp as ddp_mod
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.parallel import ParallelPlan, init_state, \
+        make_train_step
+    from repro_torch.telemetry import get_registry, now
+    dev = torch.device(device)
+    cfg = get_arch(DDP_ARCH)
+    model = build_model(cfg)
+    ref = torch.load(ref_path) if grid.rank == 0 else None
+    b0 = ddp_global_batch(cfg, 0)
+
+    def opt():
+        return AdamW(lr=warmup_cosine(3e-4, 2, DDP_STEPS))
+
+    def step_of(compress, overlap=True, impl="auto"):
+        return ddp_mod.make_ddp_train_step(
+            model, opt(), grid, ParallelPlan(mode="ddp", compress=compress,
+                                             overlap=overlap),
+            device=dev, quant_impl=impl)
+
+    def spans():
+        reg = get_registry()
+        return {k: reg.histogram(f"span.{k}").sum
+                for k in ("ddp.sync", "ddp.wait", "train.step")}
+
+    out = {"rank": grid.rank, "runs": {}}
+    for compress in ("", "int8"):
+        params = model.init(SEED, device=dev, dtype="bfloat16")
+        on = step_of(compress)
+        loss_on, _, g_on = on.loss_and_grads(params, b0)
+        loss_off, _, g_off = step_of(compress, overlap=False).loss_and_grads(
+            params, b0)
+        run = {"buckets": len(on.ranges), "loss_step1": float(loss_on),
+               "gate_ii": {"grads_bitwise": _same_bits(g_on, g_off),
+                           "loss_bitwise": bool(loss_on == loss_off)}}
+        del g_off
+        if compress == "int8":
+            _, _, g_ref = step_of(compress, impl="ref").loss_and_grads(
+                params, b0)
+            run["gate_iii"] = {"grads_bitwise": _same_bits(g_on, g_ref)}
+            del g_ref, g_on
+            _, _, local = train_lib.loss_and_grads(
+                model, params, {k: torch.as_tensor(v[grid.rows(len(v))],
+                                                   device=dev)
+                                for k, v in b0.items()})
+            leaves = tree_leaves(local)
+            del local
+            flats = [bucketing.flatten_leaves(leaves[i0:i1],
+                                              on.bucket_plan.wire_dtype)
+                     for i0, i1 in on.ranges]
+            del leaves
+            run["gate_iv"] = _int8_bound(grid, flats)
+            del flats
+        else:
+            if ref is not None:
+                run["gate_i"] = {"loss_rel": abs(float(loss_on) - ref["loss"])
+                                 / abs(ref["loss"]),
+                                 "grad_rel": _rel_leaves(g_on, ref["grads"])}
+            faults = {}
+            for fault, gate in DDP_FAULTS.items():
+                if gate == "ii":
+                    step = _early_hook_step()(
+                        model, opt(), grid,
+                        ParallelPlan(mode="ddp", compress=compress), dev)
+                    _, _, fg = step.loss_and_grads(params, b0)
+                else:
+                    mod, attr, repl = _ddp_fault(fault, grid)
+                    orig = getattr(mod, attr)
+                    setattr(mod, attr, repl)
+                    try:
+                        _, _, fg = step_of(compress).loss_and_grads(params,
+                                                                    b0)
+                    finally:
+                        setattr(mod, attr, orig)
+                rec = {"gate": gate}
+                if gate == "ii":
+                    rec["grads_bitwise"] = _same_bits(fg, g_on)
+                elif ref is not None:
+                    rec["grad_rel"] = _rel_leaves(fg, ref["grads"])
+                faults[fault] = rec
+                del fg
+            run["faults"] = faults
+            del g_on
+        torch.cuda.empty_cache()
+
+        # training through the port's entry point (what launch/train.py
+        # runs); counters and spans zeroed just before the steps
+        o = opt()
+        plan = ParallelPlan(mode="ddp", compress=compress)
+        state = init_state(plan, o, params, grid=grid)
+        del params
+        step = make_train_step(plan, model, o, device=dev, grid=grid)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        get_registry().reset()
+        reset_launch_counts()
+        losses, times = [], []
+        for i in range(DDP_STEPS):
+            batch = ddp_global_batch(cfg, i)
+            torch.cuda.synchronize()
+            t0 = now()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            times.append(now() - t0)
+        counts = launch_counts()
+        run.update({"losses": losses, "step_s": times,
+                    "train_step_spans":
+                        get_registry().histogram("span.train.step").count,
+                    "median_step_s": statistics.median(times),
+                    "spans_s": spans(), "launches": counts,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+        # one more step with overlap off: every bucket's sync exposed
+        off = make_train_step(
+            ParallelPlan(mode="ddp", compress=compress, overlap=False),
+            model, o, device=dev, grid=grid)
+        get_registry().reset()
+        torch.cuda.synchronize()
+        t0 = now()
+        state, m = off(state, ddp_global_batch(cfg, DDP_STEPS))
+        float(m["loss"])
+        run["no_overlap"] = {"step_s": now() - t0, "spans_s": spans()}
+        out["runs"][compress or "uncompressed"] = run
+        del state, step, off
+        torch.cuda.empty_cache()
+    return out
+
+
+def ddp_phase(dev):
+    """gpt2-medium at full width and depth trains with HaiScale DDP as
+    DDP_PODS x DDP_DATA ranks sharing the card (``run_ranks``, gloo,
+    host-staged).  First the parent takes the loss and gradient of one
+    process on the whole global batch of step 1 (then frees it), the
+    reference of gate (i); every rank then runs ``ddp_rank``.  Gates:
+    (i) the synced uncompressed gradient within TRAIN_GRAD_REL_TOL per
+    leaf and the loss within TRAIN_LOSS_REL_TOL; (ii) overlap on = off,
+    gradients and loss bitwise, for "" and "int8"; (iii) the int8 sync
+    through the kernels = through the plain versions, bitwise; (iv) int8
+    against uncompressed within the quantization bound
+    (``_int8_bound``); (v) the planted faults of DDP_FAULTS fail their
+    gate.  Returns (results, failures)."""
+    import statistics
+
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.testing.multidev import run_ranks
+    from repro_torch.train_lib import loss_and_grads
+    cfg = get_arch(DDP_ARCH)
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev, dtype="bfloat16")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    b0 = {k: torch.as_tensor(v, device=dev)
+          for k, v in ddp_global_batch(cfg, 0).items()}
+    loss, _, grads = loss_and_grads(model, params, b0)
+    ref_dir = ROOT / "build" / "ddp_phase"
+    ref_dir.mkdir(parents=True, exist_ok=True)
+    ref_path = ref_dir / "reference.pt"
+    torch.save({"loss": float(loss),
+                "grads": [g.cpu() for g in tree_leaves(grads)]}, ref_path)
+    names = _leaf_names(params)
+    del params, grads, b0, loss
+    torch.cuda.empty_cache()
+
+    ranks = run_ranks(ddp_rank, DDP_PODS, DDP_DATA, device=str(dev),
+                      stage="host", args=(str(ref_path),), timeout=600)
+    ref_path.unlink()
+    r0 = ranks[0][0]
+    failures = []
+    world = DDP_PODS * DDP_DATA
+    tokens = world * DDP_BATCH * DDP_SEQ
+    flops = 6 * n_params * tokens + 12 * cfg.n_layers * cfg.n_heads * \
+        cfg.head_dim * world * DDP_BATCH * causal_pairs(DDP_SEQ, DDP_SEQ, 0,
+                                                         DDP_SEQ)
+    out = {"arch": DDP_ARCH, "params": n_params, "pods": DDP_PODS,
+           "data": DDP_DATA, "batch_per_rank": DDP_BATCH, "seq": DDP_SEQ,
+           "steps": DDP_STEPS, "model_flops_per_step": flops, "runs": {}}
+    for key, run in r0["runs"].items():
+        all_runs = [r["runs"][key] for r, _ in ranks]
+        med = statistics.median(run["step_s"])
+        gi = run.get("gate_i")
+        summary = {
+            "buckets": run["buckets"], "losses": run["losses"],
+            "median_step_s": med, "tokens_per_s": tokens / med,
+            "mfu_vs_bf16_dense_peak": flops / med / PEAK["bf16_tensor"],
+            "peak_mem_gb_per_rank": max(r["peak_mem_gb"] for r in all_runs),
+            "rank0_sync_s_per_step": run["spans_s"]["ddp.sync"] / DDP_STEPS,
+            "rank0_exposed_wait_s_per_step":
+                run["spans_s"]["ddp.wait"] / DDP_STEPS,
+            "rank0_train_step_spans": run["train_step_spans"],
+            "no_overlap": run["no_overlap"],
+            "launches_per_step": {
+                k: sum(r["launches"][k] for r in all_runs) / DDP_STEPS
+                for k in ("quantize", "dequantize", "flash_attention",
+                          "flash_attention_bwd_dkv",
+                          "flash_attention_bwd_dq")},
+            "launches": {k: sum(r["launches"][k] for r in all_runs)
+                         for k in run["launches"]},
+            "gate_ii": run["gate_ii"]}
+        if not all(math.isfinite(x) for x in run["losses"]):
+            failures.append(f"ddp {key}: losses not finite")
+        for r in all_runs:
+            if r["train_step_spans"] != DDP_STEPS:
+                failures.append(f"ddp {key}: {r['train_step_spans']} of "
+                                f"{DDP_STEPS} steps ran through "
+                                "parallel.make_train_step")
+            if not all(r["gate_ii"].values()):
+                failures.append(f"ddp {key}: overlap on and off differ "
+                                f"(gate ii): {r['gate_ii']}")
+        if gi is not None:
+            worst = max(range(len(gi["grad_rel"])),
+                        key=lambda i: gi["grad_rel"][i])
+            summary["gate_i"] = {
+                "loss_rel": gi["loss_rel"],
+                "grad_rel_max": gi["grad_rel"][worst],
+                "grad_rel_max_leaf": names[worst],
+                "ok": gi["loss_rel"] <= TRAIN_LOSS_REL_TOL and
+                max(gi["grad_rel"]) <= TRAIN_GRAD_REL_TOL}
+            if not summary["gate_i"]["ok"]:
+                failures.append(f"ddp: synced gradient vs one process "
+                                f"(gate i): {summary['gate_i']}")
+            ctl = []
+            for fault, rec in run["faults"].items():
+                row = {"fault": fault, "gate": rec["gate"]}
+                if rec["gate"] == "ii":
+                    row["caught"] = not rec["grads_bitwise"]
+                else:
+                    row["grad_rel_max"] = max(rec["grad_rel"])
+                    row["caught"] = row["grad_rel_max"] > TRAIN_GRAD_REL_TOL
+                ctl.append(row)
+                if not row["caught"]:
+                    failures.append(f"ddp: planted fault '{fault}' passed "
+                                    f"gate ({rec['gate']})")
+            summary["controls"] = ctl
+        if "gate_iii" in run:
+            summary["gate_iii"] = run["gate_iii"]
+            summary["gate_iv"] = {
+                "bound_used_max": max(r["gate_iv"]["bound_used_max"]
+                                      for r in all_runs),
+                "hfreduce_s_rank0": run["gate_iv"]["hfreduce_s"],
+                "rel_to_uncompressed": run["gate_iv"]["rel_to_uncompressed"]}
+            for r in all_runs:
+                if not r["gate_iii"]["grads_bitwise"]:
+                    failures.append("ddp int8: kernels and plain versions "
+                                    "differ (gate iii)")
+                if not r["gate_iv"]["ok"]:
+                    failures.append(f"ddp int8: outside the quantization "
+                                    f"bound (gate iv): {r['gate_iv']}")
+            for k in ("quantize", "dequantize"):
+                if summary["launches"][k] <= 0:
+                    failures.append(f"ddp int8: kernel {k} never launched "
+                                    "on the DDP path")
+        for k in ("flash_attention", "flash_attention_bwd_dkv",
+                  "flash_attention_bwd_dq"):
+            if summary["launches"][k] <= 0:
+                failures.append(f"ddp {key}: kernel {k} never launched")
+        out["runs"][key] = summary
+        print(json.dumps({"ddp_run": key, **summary}), flush=True)
+    return out, failures
+
+
+def _leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
 def main():
     # the training phase holds ~70 GB in tensors of very different sizes:
     # expandable segments keep the caching allocator from fragmenting
@@ -2296,7 +2934,8 @@ def main():
     for name, phase in (("kernels", kernel_phase),
                         ("backward kernels", backward_kernel_phase),
                         ("gating kernels", gating_phase),
-                        ("ssd kernels", ssd_phase)):
+                        ("ssd kernels", ssd_phase),
+                        ("quant kernels", quant_phase)):
         cases.update(timed(name, lambda: phase(dev)))
     for name, rows in cases.items():
         for r in rows:
@@ -2340,6 +2979,9 @@ def main():
                                           lambda: hybrid_train_phase(dev))
     print(json.dumps({"hybrid_train": hybrid_train}), flush=True)
     failures += hybrid_failures
+    torch.cuda.empty_cache()
+    ddp, ddp_failures = timed("ddp training", lambda: ddp_phase(dev))
+    failures += ddp_failures
 
     # representative main-path case of each kernel: the decode tick for
     # rmsnorm (8 slots), paged attention (T = 1, bs 16, bf16) and top-k
@@ -2373,6 +3015,13 @@ def main():
                     tr["launches"][name]
                 per_step[f"{arch} train (per step)"] = \
                     tr["launches_per_step"][name]
+        for key, run in ddp["runs"].items():
+            if run["launches"].get(name, 0):
+                label = f"{DDP_ARCH} ddp {key} {DDP_STEPS} steps, " \
+                        f"{DDP_PODS * DDP_DATA} ranks"
+                runs[label] = run["launches"][name]
+                per_step[f"{label} (per step)"] = \
+                    run["launches"][name] / DDP_STEPS
         summary.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "case": r["case"],
@@ -2395,6 +3044,7 @@ def main():
                                "mfu_vs_bf16_dense_peak", "peak_mem_gb",
                                "losses", "launches_per_step")}}),
             flush=True)
+    print(json.dumps({"ddp_summary": ddp}), flush=True)
     for label, serve in (("moe_serve_summary", moe_e2e),
                          ("hybrid_serve_summary", hybrid_e2e)):
         print(json.dumps({label: {

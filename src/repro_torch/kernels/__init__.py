@@ -8,7 +8,7 @@ it drives a path and reads them after shows which kernels that path went
 through.
 """
 from repro_torch.kernels import flash_attention, paged_chunk_attention, \
-    rmsnorm, ssd_scan, topk_gating
+    quant_comm, rmsnorm, ssd_scan, topk_gating
 
 KERNELS = {
     "rmsnorm": rmsnorm.LAUNCHES,
@@ -22,6 +22,8 @@ KERNELS = {
     "topk_gating_bwd": topk_gating.LAUNCHES_BWD,
     "ssd_scan": ssd_scan.LAUNCHES,
     "ssd_scan_bwd": ssd_scan.LAUNCHES_BWD,
+    "quantize": quant_comm.LAUNCHES_QUANT,
+    "dequantize": quant_comm.LAUNCHES_DEQUANT,
 }
 
 

@@ -43,6 +43,18 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(template, leaves):
+    """``leaves`` (in ``tree_leaves`` order) placed back in
+    ``template``'s nesting."""
+    it = iter(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        return next(it)
+    return walk(template)
+
+
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}

@@ -2,13 +2,15 @@
 devices (port of ``repro/parallel/plan.py``).
 
 The dataclass is a copy of the JAX package's, fields and validation
-alike, so a plan reads the same in both packages.  Of its executors only
-``mode="gspmd"`` on one device is ported (``train_lib.make_train_step``);
-``"ddp"`` (HaiScale DDP / HFReduce, ROADMAP A7) and ``"pp"`` (the
-pipelined path, ROADMAP A13) raise ``NotImplementedError``.  There is no
-mesh in the port yet, so the JAX plan's ``mesh_batch_axes`` is not
-copied, and the knobs that split work or state over more than one
-device (``tp``, ``ep``, ``zero1``, ``opt_shard_model``, ``seq_shard``)
+alike, so a plan reads the same in both packages.  Two executors are
+ported: ``mode="gspmd"`` on one device (``train_lib.make_train_step``)
+and ``mode="ddp"``, HaiScale DDP with HFReduce over the ranks of a
+``core.grid.Grid`` (``core/ddp.py``; ``zero1`` acts there).  ``"pp"``
+(the pipelined path, ROADMAP A13) raises ``NotImplementedError``.  There
+is no mesh in the port, so the JAX plan's ``mesh_batch_axes`` is not
+copied: the grid's ("pod", "data") groups are the batch axes.  The knobs
+that split work or state over devices in ways not ported (``tp``,
+``ep``, ``opt_shard_model``, ``seq_shard``; ``zero1`` outside ddp)
 raise unless they keep their one-device values.  ``fsdp`` shards params
 over the batch axes, which on one device hold the whole of every leaf
 whichever value it takes.  ``microbatch`` and ``remat`` act.
@@ -25,8 +27,7 @@ MODES = ("gspmd", "ddp", "pp")
 GRAD_SYNCS = ("hfreduce", "flat")
 COMPRESSIONS = ("", "bf16", "fp8", "int8")
 PP_SCHEDULES = ("gpipe", "1f1b")
-_NOT_PORTED = {"ddp": "HaiScale DDP / HFReduce (ROADMAP A7)",
-               "pp": "the pipelined path (ROADMAP A13)"}
+_NOT_PORTED = {"pp": "the pipelined path (ROADMAP A13)"}
 # the plan's values that keep work and state on one device
 _ONE_DEVICE = {"tp": 1, "ep": 1, "zero1": False, "opt_shard_model": False,
                "seq_shard": False}
@@ -112,30 +113,43 @@ class ParallelPlan:
             hier_allreduce=self.grad_sync == "hfreduce")
 
 
-def _require_ported(plan: ParallelPlan) -> None:
+def _require_ported(plan: ParallelPlan, grid=None) -> None:
     if plan.mode in _NOT_PORTED:
         raise NotImplementedError(
             f"ParallelPlan(mode={plan.mode!r}) is not ported to repro_torch "
-            f"yet: {_NOT_PORTED[plan.mode]}; use mode='gspmd' on one "
-            "device")
+            f"yet: {_NOT_PORTED[plan.mode]}; use mode='gspmd' or 'ddp'")
+    allowed = {"zero1"} if plan.mode == "ddp" else set()
     multi = {k: getattr(plan, k) for k, one in _ONE_DEVICE.items()
-             if getattr(plan, k) != one}
+             if getattr(plan, k) != one and k not in allowed}
     if multi:
         raise NotImplementedError(
-            f"ParallelPlan{multi} needs more than one device; repro_torch "
-            f"runs one device only, with {_ONE_DEVICE}")
+            f"ParallelPlan{multi} is not ported to repro_torch: it splits "
+            f"work or state in ways the port does not run; keep "
+            f"{_ONE_DEVICE} (zero1 acts with mode='ddp')")
+    if plan.mode == "ddp" and grid is None:
+        raise ValueError("mode='ddp' runs over the ranks of a "
+                         "core.grid.Grid; pass grid=")
 
 
-def make_train_step(plan: ParallelPlan, model, optimizer, device=None):
+def make_train_step(plan: ParallelPlan, model, optimizer, device=None,
+                    grid=None):
     """The train step ``step(state, batch) -> (state, metrics)`` for
-    ``plan`` on one device (default: the card; raises without CUDA
-    unless ``device="cpu"``).  The step updates ``state`` in place (see
-    ``optim.AdamW``) and runs inside a ``train.step`` telemetry span, as
-    the JAX step does."""
-    from repro_torch import train_lib
-    _require_ported(plan)
-    step = train_lib.make_train_step(model, optimizer, plan.gspmd_config(),
-                                     device=resolve_device(device))
+    ``plan`` (device default: the card; raises without CUDA unless
+    ``device="cpu"``).  ``"gspmd"`` runs on one device; ``"ddp"`` runs
+    this rank's part of the global ``batch`` on ``grid``
+    (``core.ddp.make_ddp_train_step``).  The step updates ``state`` in
+    place (see ``optim.AdamW``) and runs inside a ``train.step``
+    telemetry span, as the JAX step does."""
+    _require_ported(plan, grid)
+    if plan.mode == "ddp":
+        from repro_torch.core.ddp import make_ddp_train_step
+        step = make_ddp_train_step(model, optimizer, grid, plan,
+                                   device=device)
+    else:
+        from repro_torch import train_lib
+        step = train_lib.make_train_step(model, optimizer,
+                                         plan.gspmd_config(),
+                                         device=resolve_device(device))
 
     def traced_step(state, batch):
         with span("train.step"):
@@ -144,8 +158,12 @@ def make_train_step(plan: ParallelPlan, model, optimizer, device=None):
     return traced_step
 
 
-def init_state(plan: ParallelPlan, optimizer, params):
-    """Optimizer state matching the plan's executor
-    (``optimizer.init``)."""
-    _require_ported(plan)
+def init_state(plan: ParallelPlan, optimizer, params, grid=None):
+    """Optimizer state matching the plan's executor: ``optimizer.init``,
+    or this rank's flat shards for ddp with ``zero1``
+    (``core.ddp.init_zero1_state``)."""
+    _require_ported(plan, grid)
+    if plan.mode == "ddp" and plan.zero1:
+        from repro_torch.core.ddp import init_zero1_state
+        return init_zero1_state(params, optimizer, grid)
     return optimizer.init(params)

@@ -9,18 +9,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.params import tree_leaves
-
-
-def _unflatten(tree, leaves):
-    """``leaves`` (in ``tree_leaves`` order) placed back in ``tree``'s
-    nesting."""
-    it = iter(leaves)
-
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        return next(it)
-    return walk(tree)
+from repro_torch.models.params import tree_unflatten as _unflatten
 
 
 def loss_and_grads(model, params, batch, remat=True):

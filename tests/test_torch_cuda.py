@@ -335,3 +335,57 @@ def test_two_train_steps_through_the_kernels(cuda):
                  "flash_attention_bwd_dq"):
         assert counts[name] > 0, (name, counts)
     assert int(state["step"]) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_comm_kernels_match_plain_on_card(cuda, dtype):
+    """quantize and dequantize (to fp32 and bf16) bitwise equal to their
+    plain versions, on gradient-like values with a zero block and on
+    values at k + 0.5 code boundaries; each launch is counted."""
+    from repro_torch.kernels.quant_comm import (LAUNCHES_DEQUANT,
+                                                LAUNCHES_QUANT, dequantize,
+                                                dequantize_ref, quantize,
+                                                quantize_ref)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    n = 256 * 513
+    x = torch.randn(n, device=cuda, generator=g) * torch.exp(
+        torch.randn(n, device=cuda, generator=g))
+    x[256:512] = 0
+    s = torch.exp(torch.randn(n // 256, 1, device=cuda, generator=g)) / 127
+    k = torch.randint(-127, 127, (n // 256, 256), device=cuda, generator=g)
+    edge = ((k + 0.5) * s).reshape(-1)
+    edge.view(-1, 256)[:, -1] = (127 * s[:, 0])
+    for v in (x, edge):
+        v = v.to(getattr(torch, dtype))
+        q0, d0 = LAUNCHES_QUANT.value, LAUNCHES_DEQUANT.value
+        q, sc = quantize(v)
+        rq, rs = quantize_ref(v)
+        assert torch.equal(q, rq) and torch.equal(sc, rs)
+        for out in (torch.float32, torch.bfloat16):
+            assert torch.equal(dequantize(q, sc, out_dtype=out),
+                               dequantize_ref(q, sc, out))
+        assert LAUNCHES_QUANT.value == q0 + 1
+        assert LAUNCHES_DEQUANT.value == d0 + 2
+
+
+@pytest.mark.cuda
+def test_ddp_collectives_staged_on_card_match_cpu(cuda):
+    """Every ``core`` collective on CUDA tensors through host staging (8
+    ranks sharing the card, 2 pods x 4 data) gives the CPU ranks' result:
+    bitwise, but for int8 (the sum of 8 dequantized chunks in another
+    order: fp32 rounding) and the fp8 overflow (NaN on the card)."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.testing.multidev import check_collectives, run_ranks
+    build.build_all(["quant_comm"])
+    cpu = run_ranks(check_collectives, 2, 4, "cpu")[0][0]
+    gpu, counts = run_ranks(check_collectives, 2, 4, "cuda:0",
+                            stage="host")[0]
+    for k, v in cpu.items():
+        if k == "fp8_after":
+            continue
+        tol = 1e-5 * np.abs(v).max() if k == "int8" else 0
+        np.testing.assert_allclose(gpu[k], v, rtol=0, atol=tol, err_msg=k)
+    assert counts["quantize"] > 0 and counts["dequantize"] > 0

@@ -66,6 +66,22 @@ def test_guard_scans_the_hybrid_slice():
         assert m in mods, m
 
 
+def test_guard_scans_the_ddp_slice():
+    """The import and source scans reach HaiScale DDP's modules, the
+    multi-process harness and the int8 quant_comm kernel's."""
+    mods = _port_modules()
+    for m in ("repro_torch.core", "repro_torch.core.grid",
+              "repro_torch.core.compression", "repro_torch.core.hfreduce",
+              "repro_torch.core.tree_allreduce",
+              "repro_torch.core.bucketing", "repro_torch.core.ddp",
+              "repro_torch.testing.multidev",
+              "repro_torch.kernels.quant_comm",
+              "repro_torch.kernels.quant_comm.kernel",
+              "repro_torch.kernels.quant_comm.ops",
+              "repro_torch.kernels.quant_comm.ref"):
+        assert m in mods, m
+
+
 def test_port_sources_never_name_the_jax_package():
     pat = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
                      r"(\.|\s))", re.M)

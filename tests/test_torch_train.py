@@ -3,7 +3,7 @@ fp32 with the same numpy-drawn weights (tests/_torch_pair.py) and the
 same synthetic batches:
 
 (a) ``DecoderLM.loss`` and every parameter gradient against
-    ``jax.value_and_grad(model.loss)`` for three dense archs;
+    ``jax.value_and_grad(model.loss)`` for four dense archs;
 (b) the 10-step loss trajectory of examples/quickstart.py's setting
     against the JAX ``parallel.plan.make_train_step``;
 (c) one step with ``microbatch=2`` against the JAX gspmd step.
@@ -42,11 +42,12 @@ def _leaves(tree, prefix=""):
 
 
 @pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "codeqwen1.5-7b",
-                                  "nemotron-4-15b"])
+                                  "nemotron-4-15b", "gpt2-medium"])
 def test_loss_and_grads_match_jax(arch):
     """phi4 (rmsnorm, SwiGLU, tied), codeqwen (qkv bias, untied),
-    nemotron (layernorm, squared ReLU), with a loss mask: loss within
-    1e-5, every gradient leaf within 1e-5 of its max |g|."""
+    nemotron (layernorm, squared ReLU), gpt2-medium (layernorm, tanh
+    gelu, tied: the model the DDP path trains), with a loss mask: loss
+    within 1e-5, every gradient leaf within 1e-5 of its max |g|."""
     from repro_torch.train_lib import loss_and_grads
     jcfg, jm, jp, tcfg, tm, tp = build_pair(arch)
     batch = _batch(tcfg, 0, 2, 16)
@@ -147,12 +148,16 @@ def test_train_cli_on_cpu(capsys):
     out = capsys.readouterr().out
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert out.count(" loss ") == 3          # one per step, then the final
-    with pytest.raises(NotImplementedError, match="A7"):
-        from repro_torch.parallel import ParallelPlan, make_train_step
+    # the pipelined path is not ported; ddp runs over a grid of ranks
+    # (tests/test_torch_ddp.py drives it, the CLI included)
+    from repro_torch.parallel import ParallelPlan, make_train_step
+    with pytest.raises(NotImplementedError, match="A13"):
+        make_train_step(ParallelPlan(mode="pp"), None, None, device="cpu")
+    with pytest.raises(ValueError, match="grid"):
         make_train_step(ParallelPlan(mode="ddp", overlap=False), None, None,
                         device="cpu")
     with pytest.raises(SystemExit):
-        train.main(["--arch", "phi4-mini-3.8b", "--parallel", "ddp"])
+        train.main(["--arch", "phi4-mini-3.8b", "--parallel", "pp"])
 
 
 def _smoke_step(remat):
