@@ -8,7 +8,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. card: name and power limit (nvidia-smi); build every kernel from the
    sources in this checkout (one nvcc per CUDA source, all at once; the
-   Triton rmsnorm kernels compile at their first call).
+   Triton rmsnorm kernels compile at their first call); print each
+   kernel's ptxas registers and spills, and the count of HGMMA (wgmma)
+   instructions in the flash backward library's SASS, which must not be
+   0.
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card, at the shapes phi4-mini-3.8b's serving and training
    paths give it, with its time, the plain version's time, one PyTorch
@@ -18,14 +21,17 @@ Phases (any failure exits non-zero and prints no result line):
    Each case also holds the kernel's output against plain versions with
    a planted fault (the rmsnorm weight ignored, its projection term or
    last row block dropped; a key tile dropped, a row's own key masked,
-   fp8 / int8 scales ignored, delta dropped, the GQA sum over one head);
-   each of those must fail the tolerance.  The backward cases also hold
-   the forward kernels' residuals (rstd, lse) against the plain
-   forward's, and the chain forward kernel -> backward kernels against
-   plain forward -> plain backward.  The forward cases time one eager
-   call through the op as serving calls it, with no gradient to take
-   (``host_ms``), and through the kernel's wrapper alone
-   (``host_ms_wrapper``), in turn, the least of five readings each.
+   fp8 / int8 scales ignored, delta dropped, the GQA sum over one head,
+   one stage of the dK/dV kernel's ring or one of the dQ kernel's key
+   tiles skipped); each of those must fail the tolerance.  The backward
+   cases also hold the forward kernels' residuals (rstd, lse) against the
+   plain forward's, and the chain forward kernel -> backward kernels
+   against plain forward -> plain backward; the flash backward kernels
+   must repeat bitwise and give dK = dV = 0 past kv_len.  The forward
+   cases time one eager call through the op as serving calls it, with
+   no gradient to take (``host_ms``), and through the kernel's wrapper
+   alone (``host_ms_wrapper``), in turn, the least of five readings
+   each.
 3. serving end to end: phi4-mini-3.8b at full width in bf16 (random
    weights drawn on the card from seed 0) serves 8 requests with prompts
    of 64..1024 tokens, staggered arrivals and 32 new tokens each through
@@ -159,7 +165,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 8
 TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd_dx", "rmsnorm_bwd_dw",
                  "flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq")
-KEY_TILE = 64      # keys per tile, BK in kernels/csrc/attn_tile.cuh
+# rows per tile: BK of the forward kernels (kernels/csrc/attn_tile.cuh),
+# TILE of the flash backward's streamed tiles (flash_attention_bwd.cu)
+KEY_TILE = 64
 
 # the MoE family: qwen2-moe-a2.7b serves at full width (24 layers) and
 # trains at full widths with its depth cut to MOE_TRAIN_LAYERS, so that
@@ -282,6 +290,46 @@ SLOW_A_LOG = math.log(0.05)
 # path's within TRAIN_GRAD_REL_TOL.  The leaves cannot hold the plain
 # backward to 1e-3: the two backwards round dx, dB and dC to bf16 apart,
 # and 38 layers of bf16 backward carry that to ~1.2e-2 (first reading).
+
+
+def ptxas_lines(log):
+    """(kernel, line) for each register and spill line of an nvcc
+    ``-Xptxas -v`` log, the kernel named as c++filt demangles it."""
+    import re
+    fn, out = "", []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            try:
+                fn = subprocess.run(["c++filt", fn], capture_output=True,
+                                    text=True, timeout=30).stdout.strip()
+            except OSError:
+                pass
+            fn = fn.replace("(anonymous namespace)::", "")
+        elif "registers" in line or "spill" in line:
+            out.append((fn, line.strip()))
+    return out
+
+
+def spills(log):
+    """The ptxas lines of an nvcc log that report spilled bytes."""
+    import re
+    return [(fn, line) for fn, line in ptxas_lines(log)
+            if any(int(n) for n in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))]
+
+
+def sass_count(name, opcode):
+    """How often ``opcode`` appears in the SASS of kernel library
+    ``name`` (cuobjdump from the CUDA toolkit that built it)."""
+    from repro_torch.kernels import build
+    exe = Path(build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(exe), "-sass", str(build.lib_path(name))],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {sass.stderr.strip()}")
+    return sass.stdout.count(opcode)
 
 
 def card_line():
@@ -664,16 +712,56 @@ def causal_pairs(sq, skv, q_offset, kv_len, causal=True):
     return int(np.clip(lim, 0, skv).sum())
 
 
+def stage_skipped(q, k, v, do, lse, delta, kw):
+    """The plain dK, dV with one stage of the dK/dV kernel's ring lost:
+    query head 0's middle 64-row tile contributes nothing (its dO and
+    delta zeroed, so its P^T dO and dS^T Q terms vanish)."""
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    sq = q.shape[2]
+    lo = (sq // KEY_TILE) // 2 * KEY_TILE
+    do_f, delta_f = do.clone(), delta.clone()
+    do_f[:, 0, lo:lo + KEY_TILE] = 0
+    delta_f[:, 0, lo:lo + KEY_TILE] = 0
+    return attention_bwd_ref(q, k, v, do_f, lse, delta_f, **kw)[1:]
+
+
+def key_tile_skipped(q, k, v, do, lse, delta, rq, kw):
+    """The plain dQ with one of the dQ kernel's key tiles lost: the middle
+    64-key tile below kv_len contributes nothing (``rq`` minus its
+    dS K term, with P and dS as the plain backward forms them)."""
+    import torch
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    kv_end = min(skv if kw["kv_len"] is None else kw["kv_len"], skv)
+    lo = (kv_end // KEY_TILE) // 2 * KEY_TILE
+    hi = min(lo + KEY_TILE, kv_end)
+    group, scale = h // kvh, d ** -0.5
+    kt = k[:, :, lo:hi].float().repeat_interleave(group, dim=1)
+    vt = v[:, :, lo:hi].float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kt) * scale
+    qpos = kw["q_offset"] + torch.arange(sq, device=q.device)
+    kpos = torch.arange(lo, hi, device=q.device)
+    valid = kpos[None, :] <= qpos[:, None]
+    p = torch.where(valid, torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vt)
+    ds = p * (dp - delta[..., None]) * scale
+    return (rq - torch.einsum("bhqk,bhkd->bhqd", ds, kt),)
+
+
 def check_flash_bwd(dev, *, b, sq, skv, h=24, kvh=8, d=128, q_offset=None,
                     kv_len=None):
     """dK/dV and dQ kernels against the plain backward on the same q, k,
     v, dO, lse and delta (lse and delta from the plain forward), in the
     model's (b, s, h, d) memory layout.  Faults: delta dropped, the last
-    key tile dropped, and (dK/dV) the GQA sum over one head only.  Then
-    the training path's hand-off: the forward kernel's o and lse against
-    the plain forward's (fault: the last key tile dropped), and the
-    chain forward kernel -> dK/dV and dQ kernels from its own o and lse
-    against plain forward -> plain backward."""
+    key tile dropped, (dK/dV) the GQA sum over one head only and one ring
+    stage skipped (one query head's middle 64-row tile: its dO and delta
+    zeroed), and (dQ) one middle key tile skipped.  Two launches on the
+    same inputs must agree bitwise, and keys at or past kv_len must get
+    dK = dV = 0 exactly.  Then the training path's hand-off: the forward
+    kernel's o and lse against the plain forward's (fault: the last key
+    tile dropped), and the chain forward kernel -> dK/dV and dQ kernels
+    from its own o and lse against plain forward -> plain backward."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
@@ -694,6 +782,13 @@ def check_flash_bwd(dev, *, b, sq, skv, h=24, kvh=8, d=128, q_offset=None,
     delta = (o.float() * do.float()).sum(-1).contiguous()
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    again = (flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+             + (flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),))
+    bitwise = all(torch.equal(x, y) for x, y in zip((dk, dv, dq), again))
+    del again
+    kv_end = min(kv_len, skv)
+    zero_past = bool((dk[:, :, kv_end:] == 0).all()
+                     and (dv[:, :, kv_end:] == 0).all())
     rq, rk, rv = attention_bwd_ref(q, k, v, do, lse, delta, **kw)
     last = (min(kv_len, skv) - 1) // KEY_TILE * KEY_TILE
     o_k, lse_k = flash_attention_fwd(q, k, v, save_lse=True, **kw)
@@ -711,7 +806,9 @@ def check_flash_bwd(dev, *, b, sq, skv, h=24, kvh=8, d=128, q_offset=None,
     f_tile = attention_bwd_ref(q, k, v, do, lse, delta, causal=True,
                                q_offset=q_offset, kv_len=last)
     dkv_faults = {"delta dropped": f_delta[1:],
-                  "last key tile dropped": f_tile[1:]}
+                  "last key tile dropped": f_tile[1:],
+                  "one ring stage skipped": stage_skipped(
+                      q, k, v, do, lse, delta, kw)}
     if h > kvh:
         one = torch.zeros(h, device=dev, dtype=bf)
         one[::h // kvh] = 1
@@ -763,7 +860,9 @@ def check_flash_bwd(dev, *, b, sq, skv, h=24, kvh=8, d=128, q_offset=None,
              8 * d * pairs),
             ("flash_attention_bwd_dq", (dq,), (rq,),
              {"delta dropped": f_delta[:1],
-              "last key tile dropped": f_tile[:1]},
+              "last key tile dropped": f_tile[:1],
+              "one key tile skipped": key_tile_skipped(
+                  q, k, v, do, lse, delta, rq, kw)},
              lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
              3 * qb + 2 * kb + rows_b, 6 * d * pairs)):
         if len(pair) == 1:
@@ -779,7 +878,9 @@ def check_flash_bwd(dev, *, b, sq, skv, h=24, kvh=8, d=128, q_offset=None,
         chained = [checked(name, a, r) for a, r in zip(
             chain[:2] if len(pair) == 2 else chain[2:], refs)]
         out[name] = {"case": case, "max_abs_err": err, "tol_used": used,
-                     "ok": ok, "controls": faults_out,
+                     "ok": ok and bitwise and zero_past,
+                     "bitwise_repeat": bitwise,
+                     "zero_past_kv_len": zero_past, "controls": faults_out,
                      "residual": residual, "chained": {
                          "max_abs_err": max(c["max_abs_err"]
                                             for c in chained),
@@ -799,7 +900,10 @@ def backward_kernel_phase(dev):
     training step's shapes first (rmsnorm 4096 x 3072, flash b 2 x 2048
     causal), then a decode-sized rmsnorm and ragged flash cases, then
     zamba2-1.2b's training shapes (rmsnorm over d_inner 4096 and d 2048,
-    flash with 32 heads of 64, no grouping)."""
+    flash with 32 heads of 64, no grouping), then the flash kernels'
+    edges: lengths that are not multiples of their 64 / 128-row tiles
+    (129, 200, 1000), GQA groups of 1, 3 and 4, head dims 64 and 128,
+    q_offset > 0 and kv_len < skv with whole key tiles past kv_len."""
     cases = {n: [] for n in ("rmsnorm_bwd_dx", "rmsnorm_bwd_dw",
                              "flash_attention_bwd_dkv",
                              "flash_attention_bwd_dq")}
@@ -810,7 +914,12 @@ def backward_kernel_phase(dev):
                dict(b=1, sq=1000, skv=1000),
                dict(b=1, sq=448, skv=512, q_offset=64, kv_len=480),
                dict(b=1, sq=512, skv=512, d=64),
-               dict(b=2, sq=2048, skv=2048, h=32, kvh=32, d=64)):
+               dict(b=2, sq=2048, skv=2048, h=32, kvh=32, d=64),
+               dict(b=2, sq=129, skv=129, h=12, kvh=4, d=64),
+               dict(b=2, sq=200, skv=200, h=8, kvh=2, d=128),
+               dict(b=2, sq=1000, skv=1000, h=16, kvh=4, d=64),
+               dict(b=2, sq=200, skv=1000, h=8, kvh=8, d=128, q_offset=700,
+                    kv_len=777)):
         for name, row in check_flash_bwd(dev, **kw).items():
             cases[name].append(row)
     return cases
@@ -1377,7 +1486,8 @@ def teacher_forced(model, params, prompts, forced, dev, n_ticks=4, bs=16,
 
 def profiled(run, top=12):
     """``run()`` once more under torch.profiler: the device's busy share
-    of the traced wall time and the device operations by time."""
+    of the traced wall time, the device operations by time, and the
+    device time of the port's attention kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1399,10 +1509,19 @@ def profiled(run, top=12):
                    if e.device_type == DeviceType.CUDA),
                   key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
+
+    def op(e):
+        return {"op": e.key[:80], "calls": e.count,
+                "device_ms": dev_us(e) / 1e3}
+    # the port's attention kernels (flash forward and backward, paged)
+    attn = [e for e in rows if "flash_" in e.key or "paged_chunk" in e.key]
+    attn_ms = sum(dev_us(e) for e in attn) / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
-            "top": [{"op": e.key[:80], "calls": e.count,
-                     "device_ms": dev_us(e) / 1e3} for e in rows[:top]]}
+            "top": [op(e) for e in rows[:top]],
+            "attention": {"device_ms": attn_ms,
+                          "share_of_busy": attn_ms / busy_ms,
+                          "ops": [op(e) for e in attn]}}
 
 
 def e2e_phase(dev):
@@ -2920,9 +3039,21 @@ def main():
           f"{json.dumps({k: round(v, 1) for k, v in per.items()})})",
           flush=True)
     for name, log in build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+        for fn, line in ptxas_lines(log):
+            print(f"ptxas {name} {fn}: {line}", flush=True)
+    if "flash_attention_bwd" in build.build_logs:
+        failures += [f"flash_attention_bwd {fn}: ptxas spills: {line}"
+                     for fn, line in
+                     spills(build.build_logs["flash_attention_bwd"])]
+    else:
+        print("ptxas flash_attention_bwd: library from the build cache, its "
+              "ptxas lines (spills) not read in this run", flush=True)
+    hgmma = sass_count("flash_attention_bwd", "HGMMA")
+    print(json.dumps({"sass": "flash_attention_bwd", "HGMMA": hgmma}),
+          flush=True)
+    if hgmma == 0:
+        failures.append("flash_attention_bwd: no HGMMA (wgmma) instruction "
+                        "in its SASS")
 
     def timed(name, fn):
         t = now()

@@ -54,7 +54,8 @@ def nvcc() -> str:
                        "machine with the card (CUDA toolkit required)")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where kernel ``name``'s library is (or will be) built."""
     src = _KERNELS / SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
     for hdr in sorted(_INCLUDE.glob("*.cuh")):
@@ -68,7 +69,7 @@ def build_all(names=None) -> dict:
     ``nvcc`` process per source, all running together.  Returns
     {name: seconds} for what was compiled; raises on any failure."""
     names = list(SOURCES) if names is None else list(names)
-    todo = [n for n in names if not _lib_path(n).exists()]
+    todo = [n for n in names if not lib_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -76,7 +77,7 @@ def build_all(names=None) -> dict:
     procs = {}
     t0 = now()
     for n in todo:
-        out = _lib_path(n)
+        out = lib_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [exe, *NVCC_FLAGS, "-I", str(_INCLUDE), "-o", str(tmp),
                str(_KERNELS / SOURCES[n])]
@@ -102,7 +103,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         build_all([name])
-        lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
     return lib
 
 

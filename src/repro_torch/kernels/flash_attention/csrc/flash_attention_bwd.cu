@@ -7,89 +7,402 @@
 // forward's saved per-row logsumexp and use dS = P o (dP - delta) * scale,
 // with delta = rowsum(O o dO) computed in fp32 by the wrapper beforehand.
 // A pair that is masked (causal, past kv_len, a padding row) gets P exactly
-// 0 after the exp -- the masking contract of attn_tile.cuh -- so a row the
-// forward saw with no valid key (lse ~ -1e30) contributes 0, never inf.
+// 0 -- the mask is applied before the exp -- so a row the forward saw with
+// no valid key (lse ~ -1e30) contributes 0, never inf.
 //
 // What bounds them on the H100: at the training shapes (sq = skv = 2048,
-// 24/8 heads, d = 128) dK/dV runs four and dQ three 64x64xd products per
-// (query tile, key tile) pair against O(S d) bytes, far above the card's
-// ~295 FLOP/byte ridge, so the tensor cores bound them.  This first version
-// runs every product on the tensor cores through WMMA (bf16 inputs, fp32
-// accumulation) and keeps S, P, dP, dS and the fp32 accumulators in shared
-// memory; it does not use wgmma or TMA yet.
+// 24/8 heads, d = 128) dK/dV runs four and dQ three 64 x 64 x d products
+// per (query tile, key tile) pair against O(S d) bytes, far above the
+// card's ~295 FLOP/byte ridge, so the tensor cores bound them.  The design
+// feeds them as Hopper allows:
 //
-// dK/dV: one block per (64-key tile, kv head, batch); 4 warps, warp w owns
-// key rows 16w..16w+15 and holds their K and V fragments in registers.  The
-// block walks every query head of the kv head's GQA group and, for each,
-// the 64-row query tiles that can see the key tile (tiles wholly above the
-// causal diagonal are skipped):
-//   S^T = K Q^T, P^T = exp(S^T scale - lse), dV += P^T dO,
-//   dP^T = V dO^T, dS^T = P^T o (dP^T - delta) scale, dK += dS^T Q.
-// The group sum stays inside the block, as in the TPU kernel: no atomics,
-// so dK and dV are deterministic.
+// - Every product is a warpgroup MMA (wgmma m64nNk16, bf16 -> fp32) with
+//   its accumulator in registers.  S and dP come out of shared-memory
+//   operands; P and dS are rounded to bf16 and passed from the accumulator
+//   registers straight into the register A operand of the next product
+//   (hopper::acc_to_a), so S, P, dP and dS never touch shared memory.
+// - One block owns 128 rows (keys for dK/dV, queries for dQ): two consumer
+//   warpgroups of 64 rows each, whose two tiles (K and V, or Q and dO) TMA
+//   loads once.  A producer warp streams the other pair in tiles of 64 rows
+//   (Q and dO for dK/dV; K and V for dQ) through a ring of STAGES
+//   shared-memory stages with TMA, fenced by mbarriers, so loads run ahead
+//   of the products (for dK/dV its lanes also copy each tile's lse and
+//   delta).  setmaxnreg moves the producer warpgroup's registers to the
+//   consumers (24 / 240).
+// - TMA reads the model's (b, s, h, d) memory through 4-D tensor maps over
+//   (d, s, h, b) with the strides given -- no transpose -- as 64-column
+//   boxes with the 128-byte swizzle that the wgmma descriptors expect
+//   (hopper.cuh); rows past the end read as zeros.
+// - Masks only where they cut: a tile wholly masked for a warpgroup is
+//   skipped, a tile wholly valid takes an unmasked path, and only diagonal
+//   and ragged tiles evaluate the mask per pair.  scale * log2(e) is one
+//   multiply and the exp is exp2f.
+// - dQ launches its heaviest causal query blocks first.
+// - Deterministic: dK and dV sum the kv head's whole GQA group inside the
+//   block and dQ is its own kernel; no atomics, so two launches on the same
+//   inputs give the same bits.
 //
-// dQ: one block per (64-query tile, query head, batch); warp w owns query
-// rows 16w..16w+15 and holds their Q and dO fragments in registers.  The
-// block walks the key tiles up to the causal limit:
-//   S = Q K^T, P = exp(S scale - lse), dP = dO V^T,
-//   dS = P o (dP - delta) scale, dQ += dS K.
+// dK/dV: block (kv head, batch, 128-key block).  For every query head of
+// the group and every 64-row query tile that can see the keys:
+//   S^T = K Q^T, dP^T = V dO^T          (A = K / V, B = Q / dO, K-major)
+//   P^T = exp2(S^T scale log2e - lse log2e),
+//   dS^T = P^T o (dP^T - delta) scale
+//   dV += P^T dO, dK += dS^T Q          (A from registers, B MN-major)
+// dQ: block (query head, batch, 128-query block), over the key tiles up to
+// the causal limit:
+//   S = Q K^T, dP = dO V^T, P, dS as above, dQ += dS K.
 //
-// P and dS are rounded to bf16 before their tensor-core products (dS is
-// formed from the fp32 P).  Ragged lengths (sq, skv not multiples of 64,
-// kv_len < skv) are masked here; rows past sq / skv are loaded as zeros and
-// never written.  Tensors are addressed through (batch, head, seq) strides
-// with a contiguous head dim, so the model's (b, s, h, d) memory is read
-// and the gradients written in that layout without a transpose.  Shared
-// memory is far above 48 KB (about 187 KB for dK/dV at d = 128), so the
-// launcher raises the kernel's dynamic limit once per instantiation.
-#include "attn_tile.cuh"
+// Ragged lengths (sq, skv not multiples of the tiles, kv_len < skv) are
+// masked here; rows past sq / skv are never written, and keys that no query
+// sees get dK = dV = 0.  The launcher raises the kernel's dynamic
+// shared-memory limit once per instantiation (so a launch inside CUDA-graph
+// capture makes no attribute call) and passes the tensor maps by value as a
+// __grid_constant__ parameter.
+#include "hopper.cuh"
 
 namespace {
 
-using namespace attn;
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-static_assert(BQ == BK, "the backward tiles rows and columns alike");
-constexpr int T = BK;   // rows and columns of every tile
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragBcol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                                wmma::col_major>;
-using FragBrow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                                wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Shared-memory layout for head dim HD and NACC fp32 accumulators of
-// T x HD.  Pitches are padded as in attn_tile.cuh (every 16-row fragment
-// start stays 32-byte aligned).
-template <int HD, int NACC>
-struct BwdSmem {
-  static constexpr int QLD = HD + 8;   // bf16 pitch of the four tiles
-  static constexpr int SLD = T + 4;    // fp32 pitch of S and dP
-  static constexpr int PLD = T + 8;    // bf16 pitch of P and dS
-  static constexpr int ALD = HD + 4;   // fp32 pitch of the accumulators
-  static constexpr int TILE = T * QLD * 2;
-  static constexpr int T0 = 0;
-  static constexpr int T1 = T0 + TILE;
-  static constexpr int T2 = T1 + TILE;
-  static constexpr int T3 = T2 + TILE;
-  static constexpr int S_OFF = T3 + TILE;
-  static constexpr int DP_OFF = S_OFF + T * SLD * 4;
-  static constexpr int P_OFF = DP_OFF + T * SLD * 4;
-  static constexpr int DS_OFF = P_OFF + T * PLD * 2;
-  static constexpr int ACC_OFF = DS_OFF + T * PLD * 2;
-  static constexpr int VEC_OFF = ACC_OFF + NACC * T * ALD * 4;
-  static constexpr int BYTES = VEC_OFF + 2 * T * 4;
-  static_assert(TILE % 128 == 0 && S_OFF % 128 == 0 && DP_OFF % 128 == 0 &&
-                    P_OFF % 128 == 0 && DS_OFF % 128 == 0 &&
-                    ACC_OFF % 128 == 0 && VEC_OFF % 128 == 0,
-                "shared buffers must stay 128-byte aligned");
-};
+constexpr int NC = 2;               // consumer warpgroups
+constexpr int ROWS = 64;            // rows of one consumer warpgroup
+constexpr int OWN = NC * ROWS;      // rows a block owns
+constexpr int TILE = 64;            // rows of a streamed tile
+constexpr int STAGES = 2;           // depth of the ring
+constexpr int NTHREADS = (NC + 1) * 128;
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 128 * NC <= 65536,
+              "the register split must fit the SM's register file");
 
 struct Strides {
   long long b, h, s;   // element strides of the batch, head, seq axes
 };
+
+// Tensor maps first: each is 64-byte aligned, and the struct is passed by
+// value (__grid_constant__) so TMA reads the maps from parameter space.
+struct Params {
+  CUtensorMap own0, own1;   // dK/dV: K, V; dQ: Q, dO  (boxes of OWN rows)
+  CUtensorMap st0, st1;     // dK/dV: Q, dO; dQ: K, V  (boxes of TILE rows)
+  const float* lse_ptr;     // (b, h, sq) fp32
+  const float* delta_ptr;
+  bf16* out0;               // dK/dV: dK; dQ: dQ
+  bf16* out1;               // dK/dV: dV
+  Strides so0, so1;
+  int h, kvh, sq, skv, causal, q_offset, kv_len;
+  float scale;
+};
+
+// Shared memory, offsets from a 1024-byte aligned base: the two owned
+// tiles, the ring's stages (two streamed tiles each; dK/dV also lse and
+// delta), then the mbarriers (full[STAGES], empty[STAGES], own).
+template <int HD, bool DKV>
+struct Layout {
+  static constexpr int HALVES = HD / 64;
+  static constexpr int OWN_HALF = OWN * 128;
+  static constexpr int OWN_TILE = HALVES * OWN_HALF;
+  static constexpr int ST_HALF = TILE * 128;
+  static constexpr int ST_TILE = HALVES * ST_HALF;
+  static constexpr int OWN0 = 0;
+  static constexpr int OWN1 = OWN_TILE;
+  static constexpr int RING = 2 * OWN_TILE;
+  static constexpr int VEC = RING + STAGES * 2 * ST_TILE;
+  static constexpr int VEC_STAGE = 2 * TILE * 4;   // lse then delta
+  static constexpr int BAR = VEC + (DKV ? STAGES * VEC_STAGE : 0);
+  static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8;
+  static constexpr int ALLOC = BYTES + 1024;       // room to align the base
+  static constexpr uint32_t STAGE_TX = 2 * ST_TILE;   // TMA bytes a stage
+};
+
+__device__ __forceinline__ bool pair_valid(const Params& p, int qi, int kj,
+                                           int kv_end) {
+  return qi < p.sq && kj < kv_end && (!p.causal || kj <= p.q_offset + qi);
+}
+
+// 0: no pair of the 64 x 64 tile (queries q0.., keys k0..) is valid;
+// 1: every pair is; 2: the mask must be evaluated per pair.
+__device__ __forceinline__ int tile_class(const Params& p, int q0, int k0,
+                                          int kv_end) {
+  if (q0 >= p.sq || k0 >= kv_end ||
+      (p.causal && k0 > p.q_offset + q0 + 63)) {
+    return 0;
+  }
+  if (q0 + 64 <= p.sq && k0 + 64 <= kv_end &&
+      (!p.causal || k0 + 63 <= p.q_offset + q0)) {
+    return 1;
+  }
+  return 2;
+}
+
+// acc (64 x HD) += A (64 x 16, registers) B (16 x HD, MN-major)
+template <int HD>
+__device__ __forceinline__ void mma_rs(float (&acc)[HD / 2],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (HD == 128) {
+    wgmma_rs_n128<1>(acc, a, db, 1);
+  } else {
+    wgmma_rs_n64<1>(acc, a, db, 1);
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void store_rows(const float (&acc)[HD / 2],
+                                           bf16* base, const Strides& st,
+                                           int row0, int rows, int rw,
+                                           int cw) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + rw + 8 * i;
+    if (row >= rows) continue;
+    bf16* dst = base + row * st.s + cw;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack_bf16x2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+template <int HD, bool DKV>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_kernel(const __grid_constant__ Params p) {
+  using L = Layout<HD, DKV>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t full = base + L::BAR;
+  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t own_bar = empty + 8 * STAGES;
+
+  const int head = blockIdx.x;   // dK/dV: kv head; dQ: query head
+  const int bi = blockIdx.y;
+  // dQ walks its query blocks from the end: the heaviest causal ones
+  // launch first (dK/dV's heaviest, the first keys, already do)
+  const int blk = DKV ? blockIdx.z : gridDim.z - 1 - blockIdx.z;
+  const int r0 = blk * OWN;
+  const int group = p.h / p.kvh;
+  const int kv_end = min(p.skv, p.kv_len);
+
+  // the streamed tiles: dK/dV, `per` query tiles from t_first for each
+  // head of the group; dQ, key tiles up to the causal limit
+  int t_first = 0, per = 0, n_tiles;
+  if constexpr (DKV) {
+    t_first = p.causal ? max(0, r0 - p.q_offset) / TILE : 0;
+    per = r0 < kv_end ? max(0, (p.sq + TILE - 1) / TILE - t_first) : 0;
+    n_tiles = group * per;
+  } else {
+    int k_stop = kv_end;
+    if (p.causal) k_stop = min(k_stop, p.q_offset + min(r0 + OWN, p.sq));
+    n_tiles = k_stop > 0 ? (k_stop + TILE - 1) / TILE : 0;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, DKV ? 33 : 1);   // TMA (+ 32 lanes' vectors)
+      mbar_init(empty + 8 * s, NC * 4);   // one arrival per consumer warp
+    }
+    mbar_init(own_bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NC) {
+    // ------------------------------ producer ------------------------------
+    // warp 0 of the last warpgroup: lane 0 issues the TMA loads; for dK/dV
+    // every lane also copies two of the tile's lse and delta values (TMA
+    // needs 16-byte aligned rows, which (b, h, sq) fp32 rows are not when
+    // sq is odd) and arrives on the stage's full barrier
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x - NC * 128 < 32) {
+      if (lane == 0) {
+        mbar_expect_tx(own_bar, 2 * L::OWN_TILE);
+        for (int hf = 0; hf < L::HALVES; ++hf) {
+          tma_load_4d(base + L::OWN0 + hf * L::OWN_HALF, &p.own0, own_bar,
+                      hf * 64, r0, head, bi);
+          tma_load_4d(base + L::OWN1 + hf * L::OWN_HALF, &p.own1, own_bar,
+                      hf * 64, r0, head, bi);
+        }
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + 8 * s, ((i / STAGES) - 1) & 1);
+        int sh, row;
+        if constexpr (DKV) {
+          sh = head * group + i / per;
+          row = (t_first + i % per) * TILE;
+        } else {
+          sh = head / group;
+          row = i * TILE;
+        }
+        if (lane == 0) {
+          const uint32_t st = base + L::RING + s * 2 * L::ST_TILE;
+          mbar_expect_tx(full + 8 * s, L::STAGE_TX);
+          for (int hf = 0; hf < L::HALVES; ++hf) {
+            tma_load_4d(st + hf * L::ST_HALF, &p.st0, full + 8 * s, hf * 64,
+                        row, sh, bi);
+            tma_load_4d(st + L::ST_TILE + hf * L::ST_HALF, &p.st1,
+                        full + 8 * s, hf * 64, row, sh, bi);
+          }
+        }
+        if constexpr (DKV) {
+          float* vec =
+              reinterpret_cast<float*>(sm + L::VEC + s * L::VEC_STAGE);
+          const long long off = ((long long)bi * p.h + sh) * p.sq;
+#pragma unroll
+          for (int e = lane; e < TILE; e += 32) {
+            const bool in = row + e < p.sq;
+            vec[e] = in ? p.lse_ptr[off + row + e] : 0.f;
+            vec[TILE + e] = in ? p.delta_ptr[off + row + e] : 0.f;
+          }
+          mbar_arrive(full + 8 * s);
+        }
+      }
+    }
+  } else {
+    // ------------------------------ consumers -----------------------------
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int tw = threadIdx.x % 128;
+    const int warp = tw / 32;
+    const int lane = tw % 32;
+    const int rw = 16 * warp + lane / 4;   // this thread's rows: rw, rw + 8
+    const int cw = 2 * (lane % 4);         // its columns: 8j + cw (+ 1)
+    const int my_r0 = r0 + wg * ROWS;      // first row of this warpgroup
+    const float sl2 = p.scale * LOG2E;
+
+    // dQ: lse (as log2) and delta of this thread's two query rows
+    float row_lse[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
+    if constexpr (!DKV) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qi = my_r0 + rw + 8 * i;
+        if (qi < p.sq) {
+          const long long off = ((long long)bi * p.h + head) * p.sq + qi;
+          row_lse[i] = p.lse_ptr[off] * LOG2E;
+          row_delta[i] = p.delta_ptr[off];
+        }
+      }
+    }
+
+    float acc_a[HD / 2];   // dK/dV: dV = P^T dO
+    float acc_b[HD / 2];   // dK/dV: dK = dS^T Q; dQ: dQ = dS K
+#pragma unroll
+    for (int e = 0; e < HD / 2; ++e) {
+      acc_a[e] = 0.f;
+      acc_b[e] = 0.f;
+    }
+    const uint32_t own0 = base + L::OWN0 + wg * ROWS * 128;
+    const uint32_t own1 = base + L::OWN1 + wg * ROWS * 128;
+    mbar_wait(own_bar, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % STAGES;
+      mbar_wait(full + 8 * s, (i / STAGES) & 1);
+      const int c0 = DKV ? (t_first + i % per) * TILE : i * TILE;
+      const int q0 = DKV ? c0 : my_r0;
+      const int k0 = DKV ? my_r0 : c0;
+      const int cls = tile_class(p, q0, k0, kv_end);
+      if (cls != 0) {
+        const uint32_t st0 = base + L::RING + s * 2 * L::ST_TILE;
+        const uint32_t st1 = st0 + L::ST_TILE;
+        float sacc[32], dpacc[32];
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < HD / 16; ++k) {
+          wgmma_ss_n64<0>(sacc, desc_kmajor(own0, k, L::OWN_HALF),
+                          desc_kmajor(st0, k, L::ST_HALF), k > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int k = 0; k < HD / 16; ++k) {
+          wgmma_ss_n64<0>(dpacc, desc_kmajor(own1, k, L::OWN_HALF),
+                          desc_kmajor(st1, k, L::ST_HALF), k > 0);
+        }
+        wgmma_commit();
+
+        // per-column lse and delta (dK/dV: the streamed query tile's)
+        const float* vlse =
+            reinterpret_cast<const float*>(sm + L::VEC + s * L::VEC_STAGE);
+        const float* vdelta = vlse + TILE;
+        wgmma_wait<1>();   // S is in
+        // P = exp2(S scale log2e - lse log2e), masked to exactly 0
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float2 cl = make_float2(0.f, 0.f);
+          if constexpr (DKV) {
+            cl = *reinterpret_cast<const float2*>(vlse + 8 * j + cw);
+            cl.x *= LOG2E;
+            cl.y *= LOG2E;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ii = e / 2, c = e % 2;
+            const float l2 = DKV ? (c ? cl.y : cl.x) : row_lse[ii];
+            float pv = exp2f(fmaf(sacc[4 * j + e], sl2, -l2));
+            if (cls == 2) {
+              const int row = my_r0 + rw + 8 * ii;
+              const int col = c0 + 8 * j + cw + c;
+              const bool ok = DKV ? pair_valid(p, col, row, kv_end)
+                                  : pair_valid(p, row, col, kv_end);
+              if (!ok) pv = 0.f;
+            }
+            sacc[4 * j + e] = pv;
+          }
+        }
+        wgmma_wait<0>();   // dP is in
+        // dS = P o (dP - delta) scale
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float2 cd = make_float2(0.f, 0.f);
+          if constexpr (DKV) {
+            cd = *reinterpret_cast<const float2*>(vdelta + 8 * j + cw);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ii = e / 2, c = e % 2;
+            const float dl = DKV ? (c ? cd.y : cd.x) : row_delta[ii];
+            dpacc[4 * j + e] =
+                sacc[4 * j + e] * (dpacc[4 * j + e] - dl) * p.scale;
+          }
+        }
+        uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if constexpr (DKV) acc_to_a(sacc, k, pa[k]);
+          acc_to_a(dpacc, k, dsa[k]);
+        }
+        wgmma_fence();
+        if constexpr (DKV) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {   // dV += P^T dO
+            mma_rs<HD>(acc_a, pa[k], desc_mnmajor(st1, k, L::ST_HALF));
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {     // dK += dS^T Q; dQ += dS K
+          mma_rs<HD>(acc_b, dsa[k], desc_mnmajor(st0, k, L::ST_HALF));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+      // this warp is done with the stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    const int rows = DKV ? p.skv : p.sq;
+    store_rows<HD>(acc_b, p.out0 + bi * p.so0.b + head * p.so0.h, p.so0,
+                   my_r0, rows, rw, cw);
+    if constexpr (DKV) {
+      store_rows<HD>(acc_a, p.out1 + bi * p.so1.b + head * p.so1.h, p.so1,
+                     my_r0, rows, rw, cw);
+    }
+  }
+}
 
 struct BwdArgs {
   const bf16* q;
@@ -102,309 +415,81 @@ struct BwdArgs {
   bf16* dk;
   bf16* dv;
   Strides sq_, sk, sv, sdo, sdq, sdk, sdv;
-  int h, kvh, sq, skv, causal, q_offset, kv_len;
+  int b, h, kvh, sq, skv, causal, q_offset, kv_len;
   float scale;
 };
 
-// Rows row0.. of a (rows, HD) bf16 matrix -> a T x HD tile in shared
-// memory; rows at or past `rows` are zeros.
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long stride, int row0,
-                                          int rows, int tid) {
-  constexpr int CH = HD / 8;   // 16-byte chunks per row
-  constexpr int LD = HD + 8;
-  for (int i = tid; i < T * CH; i += NTHREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const int row = row0 + r;
-    copy8_bf16(dst + r * LD + c, row < rows ? src + row * stride + c
-                                            : nullptr);
-  }
-}
-
-// A T x HD fp32 accumulator -> rows row0.. of a bf16 matrix (rows at or
-// past `rows` are not written).
-template <int HD>
-__device__ __forceinline__ void store_rows(const float* acc, bf16* dst,
-                                           long long stride, int row0,
-                                           int rows, int tid) {
-  constexpr int CH = HD / 8;
-  constexpr int ALD = HD + 4;
-  for (int i = tid; i < T * CH; i += NTHREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const int row = row0 + r;
-    if (row >= rows) continue;
-    __align__(16) bf16 buf[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      buf[e] = __float2bfloat16(acc[r * ALD + c + e]);
-    }
-    *reinterpret_cast<uint4*>(dst + row * stride + c) =
-        *reinterpret_cast<const uint4*>(buf);
-  }
-}
-
-// This warp's 16 rows of A (HD/16 fragments in registers) times B^T, where
-// B is a T x HD bf16 tile in shared memory: out[16 x T] fp32 (out already
-// points at the warp's first row).
-template <int HD>
-__device__ __forceinline__ void warp_abt(const FragA (&a)[HD / 16],
-                                         const bf16* b, float* out) {
-  constexpr int LD = HD + 8;
-  constexpr int SLD = T + 4;
-#pragma unroll
-  for (int nj = 0; nj < T / 16; ++nj) {
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      // element (kk', n) of B^T is B[n][kk'] -> column-major view of B
-      FragBcol fb;
-      wmma::load_matrix_sync(fb, b + (nj * 16) * LD + kk * 16, LD);
-      wmma::mma_sync(c, a[kk], fb, c);
-    }
-    wmma::store_matrix_sync(out + nj * 16, c, SLD, wmma::mem_row_major);
-  }
-}
-
-// acc[16 x HD] += A[16 x T] B[T x HD]: A is this warp's 16 rows of a bf16
-// T-wide buffer in shared memory, B a T x HD bf16 tile, acc the warp's 16
-// rows of an fp32 accumulator in shared memory.
-template <int HD>
-__device__ __forceinline__ void warp_ab_acc(const bf16* a, const bf16* b,
-                                            float* acc) {
-  constexpr int LD = HD + 8;
-  constexpr int PLD = T + 8;
-  constexpr int ALD = HD + 4;
-  FragA fa[T / 16];
-#pragma unroll
-  for (int kk = 0; kk < T / 16; ++kk) {
-    wmma::load_matrix_sync(fa[kk], a + kk * 16, PLD);
-  }
-#pragma unroll
-  for (int nd = 0; nd < HD / 16; ++nd) {
-    FragC c;
-    wmma::load_matrix_sync(c, acc + nd * 16, ALD, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < T / 16; ++kk) {
-      FragBrow fb;
-      wmma::load_matrix_sync(fb, b + (kk * 16) * LD + nd * 16, LD);
-      wmma::mma_sync(c, fa[kk], fb, c);
-    }
-    wmma::store_matrix_sync(acc + nd * 16, c, ALD, wmma::mem_row_major);
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void load_frags(const bf16* tile, int warp,
-                                           FragA (&f)[HD / 16]) {
-  constexpr int LD = HD + 8;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    wmma::load_matrix_sync(f[kk], tile + (warp * 16) * LD + kk * 16, LD);
-  }
-}
-
-__device__ __forceinline__ bool pair_valid(const BwdArgs& a, int qi, int kj,
-                                           int kv_end) {
-  return qi < a.sq && kj < kv_end && (!a.causal || kj <= a.q_offset + qi);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const BwdArgs a) {
-  using L = BwdSmem<HD, 2>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::T0);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L::T1);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::T2);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::T3);
-  float* sS = reinterpret_cast<float*>(smem + L::S_OFF);
-  float* sDP = reinterpret_cast<float*>(smem + L::DP_OFF);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::P_OFF);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::DS_OFF);
-  float* accK = reinterpret_cast<float*>(smem + L::ACC_OFF);
-  float* accV = accK + T * L::ALD;
-  float* vLse = reinterpret_cast<float*>(smem + L::VEC_OFF);
-  float* vDelta = vLse + T;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int k0 = blockIdx.x * T;
-  const int kvhead = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int group = a.h / a.kvh;
-  const int kv_end = min(a.skv, a.kv_len);
-
-  load_tile<HD>(sK, a.k + bi * a.sk.b + kvhead * a.sk.h, a.sk.s, k0, kv_end,
-                tid);
-  load_tile<HD>(sV, a.v + bi * a.sv.b + kvhead * a.sv.h, a.sv.s, k0, kv_end,
-                tid);
-  for (int i = tid; i < 2 * T * L::ALD; i += NTHREADS) accK[i] = 0.f;
-  __syncthreads();
-  FragA ka[HD / 16], va[HD / 16];
-  load_frags<HD>(sK, warp, ka);
-  load_frags<HD>(sV, warp, va);
-
-  // the first query row that can see key k0 (causal), rounded to its tile
-  const int q_start =
-      a.causal ? (max(0, k0 - a.q_offset) / T) * T : 0;
-  const int r = warp * 16 + (lane >> 1);   // this lane's key row (half)
-  const int kj = k0 + r;
-  const int c0 = (lane & 1) * (T / 2);
-  float* sw = sS + (warp * 16) * L::SLD;
-  float* dpw = sDP + (warp * 16) * L::SLD;
-  for (int g = 0; k0 < kv_end && g < group; ++g) {
-    const int head = kvhead * group + g;
-    const bf16* qb = a.q + bi * a.sq_.b + head * a.sq_.h;
-    const bf16* dob = a.dout + bi * a.sdo.b + head * a.sdo.h;
-    const long long row_off = ((long long)bi * a.h + head) * a.sq;
-    for (int q0 = q_start; q0 < a.sq; q0 += T) {
-      __syncthreads();   // every warp is done with the previous Q / dO
-      load_tile<HD>(sQ, qb, a.sq_.s, q0, a.sq, tid);
-      load_tile<HD>(sDO, dob, a.sdo.s, q0, a.sq, tid);
-      if (tid < T) {
-        const int qi = q0 + tid;
-        vLse[tid] = qi < a.sq ? a.lse[row_off + qi] : 0.f;
-        vDelta[tid] = qi < a.sq ? a.delta[row_off + qi] : 0.f;
-      }
-      __syncthreads();
-      warp_abt<HD>(ka, sQ, sw);     // S^T, this warp's key rows
-      warp_abt<HD>(va, sDO, dpw);   // dP^T
-      __syncwarp();
-      for (int c = c0; c < c0 + T / 2; ++c) {
-        const bool ok = pair_valid(a, q0 + c, kj, kv_end);
-        const float p =
-            ok ? expf(sS[r * L::SLD + c] * a.scale - vLse[c]) : 0.f;
-        sP[r * L::PLD + c] = __float2bfloat16(p);
-        sDS[r * L::PLD + c] = __float2bfloat16(
-            p * (sDP[r * L::SLD + c] - vDelta[c]) * a.scale);
-      }
-      __syncwarp();
-      warp_ab_acc<HD>(sP + (warp * 16) * L::PLD, sDO,
-                      accV + (warp * 16) * L::ALD);   // dV += P^T dO
-      warp_ab_acc<HD>(sDS + (warp * 16) * L::PLD, sQ,
-                      accK + (warp * 16) * L::ALD);   // dK += dS^T Q
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-  store_rows<HD>(accK, a.dk + bi * a.sdk.b + kvhead * a.sdk.h, a.sdk.s, k0,
-                 a.skv, tid);
-  store_rows<HD>(accV, a.dv + bi * a.sdv.b + kvhead * a.sdv.h, a.sdv.s, k0,
-                 a.skv, tid);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const BwdArgs a) {
-  using L = BwdSmem<HD, 1>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::T0);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L::T1);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::T2);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::T3);
-  float* sS = reinterpret_cast<float*>(smem + L::S_OFF);
-  float* sDP = reinterpret_cast<float*>(smem + L::DP_OFF);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::DS_OFF);
-  float* accQ = reinterpret_cast<float*>(smem + L::ACC_OFF);
-  float* vLse = reinterpret_cast<float*>(smem + L::VEC_OFF);
-  float* vDelta = vLse + T;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int q0 = blockIdx.x * T;
-  const int head = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int kvhead = head / (a.h / a.kvh);
-  const int kv_end = min(a.skv, a.kv_len);
-  const bf16* kb = a.k + bi * a.sk.b + kvhead * a.sk.h;
-  const bf16* vb = a.v + bi * a.sv.b + kvhead * a.sv.h;
-
-  load_tile<HD>(sQ, a.q + bi * a.sq_.b + head * a.sq_.h, a.sq_.s, q0, a.sq,
-                tid);
-  load_tile<HD>(sDO, a.dout + bi * a.sdo.b + head * a.sdo.h, a.sdo.s, q0,
-                a.sq, tid);
-  if (tid < T) {
-    const int qi = q0 + tid;
-    const long long off = ((long long)bi * a.h + head) * a.sq + qi;
-    vLse[tid] = qi < a.sq ? a.lse[off] : 0.f;
-    vDelta[tid] = qi < a.sq ? a.delta[off] : 0.f;
-  }
-  for (int i = tid; i < T * L::ALD; i += NTHREADS) accQ[i] = 0.f;
-  __syncthreads();
-  FragA qa[HD / 16], da[HD / 16];
-  load_frags<HD>(sQ, warp, qa);
-  load_frags<HD>(sDO, warp, da);
-
-  const int r = warp * 16 + (lane >> 1);   // this lane's query row (half)
-  const int qi = q0 + r;
-  const float lse_r = vLse[r];
-  const float delta_r = vDelta[r];
-  const int c0 = (lane & 1) * (T / 2);
-  float* sw = sS + (warp * 16) * L::SLD;
-  float* dpw = sDP + (warp * 16) * L::SLD;
-
-  // keys that exist: [0, kv_end); causal rows also stop at their position
-  int k_stop = kv_end;
-  if (a.causal) k_stop = min(k_stop, a.q_offset + min(q0 + T, a.sq));
-  for (int k0 = 0; k0 < k_stop; k0 += T) {
-    __syncthreads();   // every warp is done with the previous K / V
-    load_tile<HD>(sK, kb, a.sk.s, k0, kv_end, tid);
-    load_tile<HD>(sV, vb, a.sv.s, k0, kv_end, tid);
-    __syncthreads();
-    warp_abt<HD>(qa, sK, sw);    // S
-    warp_abt<HD>(da, sV, dpw);   // dP
-    __syncwarp();
-    for (int c = c0; c < c0 + T / 2; ++c) {
-      const bool ok = pair_valid(a, qi, k0 + c, kv_end);
-      const float p = ok ? expf(sS[r * L::SLD + c] * a.scale - lse_r) : 0.f;
-      sDS[r * L::PLD + c] = __float2bfloat16(
-          p * (sDP[r * L::SLD + c] - delta_r) * a.scale);
-    }
-    __syncwarp();
-    warp_ab_acc<HD>(sDS + (warp * 16) * L::PLD, sK,
-                    accQ + (warp * 16) * L::ALD);   // dQ += dS K
-    __syncwarp();
-  }
-  __syncthreads();
-  store_rows<HD>(accQ, a.dq + bi * a.sdq.b + head * a.sdq.h, a.sdq.s, q0,
-                 a.sq, tid);
+cudaError_t map_of(CUtensorMap* m, const bf16* t, const Strides& st, int d,
+                   int rows, int heads, int b, int box_rows) {
+  return map_rows_bf16(m, t, d, rows, heads, b, st.s, st.h, st.b, box_rows);
 }
 
 template <int HD, bool DKV>
-cudaError_t launch(const BwdArgs& a, int b, cudaStream_t stream) {
-  constexpr int bytes = DKV ? BwdSmem<HD, 2>::BYTES : BwdSmem<HD, 1>::BYTES;
-  void (*kernel)(const BwdArgs) =
-      DKV ? flash_bwd_dkv_kernel<HD> : flash_bwd_dq_kernel<HD>;
+cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
+  using L = Layout<HD, DKV>;
+  void (*kernel)(const Params) = flash_bwd_kernel<HD, DKV>;
   // once per instantiation, so a launch inside CUDA-graph capture makes
   // no attribute call
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::ALLOC);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const int tiles = DKV ? (a.skv + T - 1) / T : (a.sq + T - 1) / T;
-  dim3 grid(tiles, DKV ? a.kvh : a.h, b);
-  kernel<<<grid, NTHREADS, bytes, stream>>>(a);
+  Params p;
+  cudaError_t err;
+  if constexpr (DKV) {
+    if ((err = map_of(&p.own0, a.k, a.sk, HD, a.skv, a.kvh, a.b, OWN)) ||
+        (err = map_of(&p.own1, a.v, a.sv, HD, a.skv, a.kvh, a.b, OWN)) ||
+        (err = map_of(&p.st0, a.q, a.sq_, HD, a.sq, a.h, a.b, TILE)) ||
+        (err = map_of(&p.st1, a.dout, a.sdo, HD, a.sq, a.h, a.b, TILE))) {
+      return err;
+    }
+    p.out0 = a.dk;
+    p.out1 = a.dv;
+    p.so0 = a.sdk;
+    p.so1 = a.sdv;
+  } else {
+    if ((err = map_of(&p.own0, a.q, a.sq_, HD, a.sq, a.h, a.b, OWN)) ||
+        (err = map_of(&p.own1, a.dout, a.sdo, HD, a.sq, a.h, a.b, OWN)) ||
+        (err = map_of(&p.st0, a.k, a.sk, HD, a.skv, a.kvh, a.b, TILE)) ||
+        (err = map_of(&p.st1, a.v, a.sv, HD, a.skv, a.kvh, a.b, TILE))) {
+      return err;
+    }
+    p.out0 = a.dq;
+    p.out1 = nullptr;
+    p.so0 = a.sdq;
+    p.so1 = a.sdq;
+  }
+  p.lse_ptr = a.lse;
+  p.delta_ptr = a.delta;
+  p.h = a.h;
+  p.kvh = a.kvh;
+  p.sq = a.sq;
+  p.skv = a.skv;
+  p.causal = a.causal;
+  p.q_offset = a.q_offset;
+  p.kv_len = a.kv_len;
+  p.scale = a.scale;
+  const int rows = DKV ? a.skv : a.sq;
+  dim3 grid(DKV ? a.kvh : a.h, a.b, (rows + OWN - 1) / OWN);
+  kernel<<<grid, NTHREADS, L::ALLOC, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <bool DKV>
-int dispatch(const BwdArgs& a, int b, int d, void* stream) {
+int dispatch(const BwdArgs& a, int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.kvh <= 0 || a.h % a.kvh != 0) {
+  if (a.kvh <= 0 || a.h % a.kvh != 0 || a.b <= 0 || a.sq <= 0 ||
+      a.skv <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (d) {
     case 64:
-      return static_cast<int>(launch<64, DKV>(a, b, s));
+      return static_cast<int>(launch<64, DKV>(a, s));
     case 128:
-      return static_cast<int>(launch<128, DKV>(a, b, s));
+      return static_cast<int>(launch<128, DKV>(a, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -412,6 +497,22 @@ int dispatch(const BwdArgs& a, int b, int d, void* stream) {
 
 Strides at(const long long* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+}
+
+BwdArgs args(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* dq, void* dk,
+             void* dv, int b, int h, int kvh, int sq, int skv,
+             const long long* strides, int causal, int q_offset, int kv_len,
+             float scale) {
+  return BwdArgs{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                 static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+                 static_cast<const float*>(lse),
+                 static_cast<const float*>(delta), static_cast<bf16*>(dq),
+                 static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                 at(strides, 0), at(strides, 1), at(strides, 2),
+                 at(strides, 3), at(strides, 4), at(strides, 5),
+                 at(strides, 6), b, h, kvh, sq, skv, causal, q_offset,
+                 kv_len, scale};
 }
 
 }  // namespace
@@ -424,14 +525,10 @@ extern "C" int flash_attention_bwd_dkv(
     const void* lse, const void* delta, void* dq, void* dk, void* dv, int b,
     int h, int kvh, int sq, int skv, int d, const long long* strides,
     int causal, int q_offset, int kv_len, float scale, void* stream) {
-  BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-            static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-            static_cast<const float*>(lse), static_cast<const float*>(delta),
-            static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-            static_cast<bf16*>(dv), at(strides, 0), at(strides, 1),
-            at(strides, 2), at(strides, 3), at(strides, 4), at(strides, 5),
-            at(strides, 6), h, kvh, sq, skv, causal, q_offset, kv_len, scale};
-  return dispatch<true>(a, b, d, stream);
+  return dispatch<true>(args(q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh,
+                             sq, skv, strides, causal, q_offset, kv_len,
+                             scale),
+                        d, stream);
 }
 
 extern "C" int flash_attention_bwd_dq(
@@ -439,12 +536,8 @@ extern "C" int flash_attention_bwd_dq(
     const void* lse, const void* delta, void* dq, void* dk, void* dv, int b,
     int h, int kvh, int sq, int skv, int d, const long long* strides,
     int causal, int q_offset, int kv_len, float scale, void* stream) {
-  BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-            static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-            static_cast<const float*>(lse), static_cast<const float*>(delta),
-            static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-            static_cast<bf16*>(dv), at(strides, 0), at(strides, 1),
-            at(strides, 2), at(strides, 3), at(strides, 4), at(strides, 5),
-            at(strides, 6), h, kvh, sq, skv, causal, q_offset, kv_len, scale};
-  return dispatch<false>(a, b, d, stream);
+  return dispatch<false>(args(q, k, v, dout, lse, delta, dq, dk, dv, b, h,
+                              kvh, sq, skv, strides, causal, q_offset, kv_len,
+                              scale),
+                         d, stream);
 }

@@ -124,33 +124,61 @@ def test_rmsnorm_backward_kernels_match_plain_on_card(cuda):
                                rtol=2e-2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("sq,skv,q_offset,kv_len,d", [
-    (200, 200, 0, 200, 128), (64, 300, 236, 250, 128),
-    (100, 100, 0, 90, 64)])
-def test_flash_backward_kernels_match_plain_on_card(cuda, sq, skv, q_offset,
-                                                    kv_len, d):
-    """dK/dV and dQ kernels against attention_bwd_ref on the same inputs,
-    in the model's (b, s, h, d) memory layout."""
-    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
-                                                     attention_fwd_ref)
-    from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bwd_dkv, flash_attention_bwd_dq)
+def _flash_bwd_inputs(cuda, b, sq, skv, h, kvh, d, q_offset, kv_len):
+    """q, k, v, do in the model's (b, s, h, d) memory, the plain
+    forward's lse and delta = rowsum(o * do), and the mask keywords."""
+    from repro_torch.kernels.flash_attention import attention_fwd_ref
     bf = torch.bfloat16
 
     def t(s, heads):
-        return torch.randn(2, s, heads, d, device=cuda,
+        return torch.randn(b, s, heads, d, device=cuda,
                            dtype=bf).transpose(1, 2)
-    q, k, v, do = t(sq, 6), t(skv, 2), t(skv, 2), t(sq, 6)
+    q, k, v, do = t(sq, h), t(skv, kvh), t(skv, kvh), t(sq, h)
     kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len)
     o, lse = attention_fwd_ref(q, k, v, **kw)
     delta = (o.float() * do.float()).sum(-1).contiguous()
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-    for got, ref in zip((dq, dk, dv), attention_bwd_ref(q, k, v, do, lse,
-                                                        delta, **kw)):
-        torch.testing.assert_close(got.float(), ref, atol=2e-2, rtol=2e-2)
+    return (q, k, v, do, lse, delta), kw
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,q_offset,kv_len,d,h,kvh", [
+    (200, 200, 0, 200, 128, 6, 2), (64, 300, 236, 250, 128, 6, 2),
+    (100, 100, 0, 90, 64, 6, 2), (129, 129, 0, 129, 64, 4, 1),
+    (1000, 1000, 0, 1000, 128, 3, 3), (129, 200, 71, 200, 128, 3, 1),
+    (200, 1000, 700, 777, 64, 8, 2)])
+def test_flash_backward_kernels_match_plain_on_card(cuda, sq, skv, q_offset,
+                                                    kv_len, d, h, kvh):
+    """dK/dV and dQ kernels against attention_bwd_ref on the same inputs,
+    in the model's (b, s, h, d) memory layout, b = 2: lengths that are
+    not multiples of the kernels' 64 / 128-row tiles, GQA groups of 1, 3
+    and 4, q_offset > 0, and kv_len < skv with whole key tiles past
+    kv_len, whose dK and dV must be exactly 0."""
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    args, kw = _flash_bwd_inputs(cuda, 2, sq, skv, h, kvh, d, q_offset,
+                                 kv_len)
+    dk, dv = flash_attention_bwd_dkv(*args, **kw)
+    dq = flash_attention_bwd_dq(*args, **kw)
+    for got, ref in zip((dq, dk, dv), attention_bwd_ref(*args, **kw)):
+        torch.testing.assert_close(got.float(), ref, atol=2e-2, rtol=2e-2)
+    assert (dk[:, :, kv_len:] == 0).all() and (dv[:, :, kv_len:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_kernels_are_deterministic_on_card(cuda, d):
+    """Two launches on the same inputs give bitwise equal dQ, dK and dV:
+    the kernels sum in a fixed order, with no atomics."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    args, kw = _flash_bwd_inputs(cuda, 2, 640, 640, 12, 4, d, 0, 640)
+    first = flash_attention_bwd_dkv(*args, **kw) + (
+        flash_attention_bwd_dq(*args, **kw),)
+    second = flash_attention_bwd_dkv(*args, **kw) + (
+        flash_attention_bwd_dq(*args, **kw),)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _gating_logits(T, E, device, tie_rows=0, seed=0):

@@ -299,3 +299,53 @@ def test_quantize_kv_matches_jax_bitwise(kv_dtype):
     # division by the constant qmax into a multiply by its reciprocal
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=2 ** -23,
                                atol=0)
+
+
+def _pairs_backward(q, k, v, do, lse, delta, valid):
+    """dq, dk, dv in float64 numpy, summed over the (query, key) pairs
+    that ``valid`` (b, h, sq, skv) keeps, from the saved lse and delta."""
+    group, scale = q.shape[1] // k.shape[1], q.shape[-1] ** -0.5
+    kk, vv = np.repeat(k, group, axis=1), np.repeat(v, group, axis=1)
+    s = q @ kk.swapaxes(-1, -2) * scale
+    p = np.where(valid, np.exp(s - lse[..., None]), 0.0)
+    ds = p * (do @ vv.swapaxes(-1, -2) - delta[..., None]) * scale
+    dk = ds.swapaxes(-1, -2) @ q
+    dv = p.swapaxes(-1, -2) @ do
+    b, h, skv, d = dk.shape
+    return (ds @ kk, dk.reshape(b, h // group, group, skv, d).sum(2),
+            dv.reshape(b, h // group, group, skv, d).sum(2))
+
+
+def test_chip_smoke_flash_faults_drop_exactly_their_work():
+    """chip_smoke.py's planted faults of the flash backward kernels drop
+    the work they name and nothing else: "one key tile skipped" is dQ
+    without the pairs of the middle key tile below kv_len, "one ring
+    stage skipped" is dK / dV without the pairs of query head 0's middle
+    64-row tile (against a float64 sum over the remaining pairs)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.kernels.flash_attention import attention_fwd_ref
+    b, sq, skv, h, kvh, d, kv_len = 1, 150, 150, 4, 2, 16, 140
+    q, do = _np((b, h, sq, d)), _np((b, h, sq, d))
+    k, v = _np((b, kvh, skv, d)), _np((b, kvh, skv, d))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    kw = dict(causal=True, q_offset=0, kv_len=kv_len)
+    o, lse = attention_fwd_ref(tq, tk, tv, **kw)
+    delta = (o * tdo).sum(-1)
+    qpos, kpos = np.arange(sq)[:, None], np.arange(skv)[None, :]
+    valid = np.broadcast_to((kpos <= qpos) & (kpos < kv_len), (b, h, sq, skv))
+    f64 = [a.astype(np.float64) for a in (q, k, v, do)]
+    saved = [t.double().numpy() for t in (lse, delta)]
+    rq = torch.from_numpy(_pairs_backward(*f64, *saved, valid)[0]).float()
+    no_tile = valid & ~((kpos >= 64) & (kpos < 128))
+    got = chip_smoke.key_tile_skipped(tq, tk, tv, tdo, lse, delta, rq, kw)
+    np.testing.assert_allclose(got[0].numpy(),
+                               _pairs_backward(*f64, *saved, no_tile)[0],
+                               atol=TOL, rtol=TOL)
+    no_stage = valid.copy()
+    no_stage[:, 0, 64:128] = False
+    got = chip_smoke.stage_skipped(tq, tk, tv, tdo, lse, delta, kw)
+    for g, want in zip(got, _pairs_backward(*f64, *saved, no_stage)[1:]):
+        np.testing.assert_allclose(g.numpy(), want, atol=TOL, rtol=TOL)
