@@ -10,8 +10,8 @@ Phases (any failure exits non-zero and prints no result line):
    sources in this checkout (one nvcc per CUDA source, all at once; the
    Triton rmsnorm kernels compile at their first call); print each
    kernel's ptxas registers and spills, and the count of HGMMA (wgmma)
-   instructions in the flash backward library's SASS, which must not be
-   0.
+   instructions in the SASS of the flash forward and backward libraries,
+   which must not be 0 (nor may a freshly built one spill).
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card, at the shapes phi4-mini-3.8b's serving and training
    paths give it, with its time, the plain version's time, one PyTorch
@@ -21,9 +21,13 @@ Phases (any failure exits non-zero and prints no result line):
    Each case also holds the kernel's output against plain versions with
    a planted fault (the rmsnorm weight ignored, its projection term or
    last row block dropped; a key tile dropped, a row's own key masked,
-   fp8 / int8 scales ignored, delta dropped, the GQA sum over one head,
-   one stage of the dK/dV kernel's ring or one of the dQ kernel's key
-   tiles skipped); each of those must fail the tolerance.  The backward
+   the flash forward's middle key tile skipped or its rescale of O
+   dropped, fp8 / int8 scales ignored, delta dropped, the GQA sum over
+   one head, one stage of the dK/dV kernel's ring or one of the dQ
+   kernel's key tiles skipped); each of those must fail the tolerance.
+   The flash forward runs also at the training steps' shapes (phi4's and
+   zamba2's, b 2 x 2048) beside SDPA with enable_gqa, and every flash
+   forward case must repeat bitwise.  The backward
    cases also hold the forward kernels' residuals (rstd, lse) against the
    plain forward's, and the chain forward kernel -> backward kernels
    against plain forward -> plain backward; the flash backward kernels
@@ -165,8 +169,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 8
 TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd_dx", "rmsnorm_bwd_dw",
                  "flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq")
-# rows per tile: BK of the forward kernels (kernels/csrc/attn_tile.cuh),
-# TILE of the flash backward's streamed tiles (flash_attention_bwd.cu)
+# rows per tile: BK of the paged kernel (kernels/csrc/attn_tile.cuh, which
+# only the paged kernel uses now), TILE of the flash forward's key tiles
+# (flash_attention_fwd.cu) and of the flash backward's streamed tiles
+# (flash_attention_bwd.cu)
 KEY_TILE = 64
 
 # the MoE family: qwen2-moe-a2.7b serves at full width (24 layers) and
@@ -487,7 +493,71 @@ def check_rmsnorm(dev, n, d):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_flash(dev, sq, kv_len, h=24, kvh=8, d=128):
+def _fwd_pairs(q, k, kw):
+    """Scores s (b, h, sq, skv) fp32, the (sq, skv) mask of the pairs the
+    causal / kv_len mask keeps, and the GQA group, as the flash forward
+    kernel sees them (end-aligned q_offset by default)."""
+    import torch
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    q_offset = skv - sq if kw.get("q_offset") is None else kw["q_offset"]
+    kv_len = skv if kw.get("kv_len") is None else kw["kv_len"]
+    kf = k.float().repeat_interleave(h // kvh, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * d ** -0.5
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
+    valid = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < kv_len)
+    return s, valid, h // kvh
+
+
+def middle_tile_skipped(q, k, v, kw):
+    """The plain forward with one of the flash forward kernel's key tiles
+    lost: the middle 64-key tile below kv_len masked for every row (a row
+    that keeps no key gives 0)."""
+    import torch
+    s, valid, group = _fwd_pairs(q, k, kw)
+    skv = k.shape[2]
+    kv_end = min(skv if kw.get("kv_len") is None else kw["kv_len"], skv)
+    lo = (kv_end // KEY_TILE) // 2 * KEY_TILE
+    kpos = torch.arange(skv, device=q.device)
+    valid = valid & ~((kpos >= lo) & (kpos < min(lo + KEY_TILE, kv_end)))
+    w = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
+    w = torch.nan_to_num(w) * valid
+    vf = v.float().repeat_interleave(group, dim=1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, vf).to(q.dtype)
+
+
+def rescale_dropped(q, k, v, kw):
+    """The plain forward with the online softmax's rescale of O dropped:
+    key tile by key tile of 64, O adds exp(s - m) V with m the running max
+    after that tile but is never multiplied by exp(m_old - m_new); the
+    normaliser l is kept right."""
+    import torch
+    s, valid, group = _fwd_pairs(q, k, kw)
+    b, h, sq, skv = s.shape
+    vf = v.float().repeat_interleave(group, dim=1)
+    o = torch.zeros(b, h, sq, v.shape[-1], device=q.device)
+    m = torch.full((b, h, sq, 1), -1e30, device=q.device)
+    l = torch.zeros(b, h, sq, 1, device=q.device)
+    for lo in range(0, skv, KEY_TILE):
+        st = s[..., lo:lo + KEY_TILE].masked_fill(
+            ~valid[:, lo:lo + KEY_TILE], float("-inf"))
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        p = torch.exp(st - m_new)
+        l = l * torch.exp(m - m_new) + p.sum(-1, keepdim=True)
+        o = o + torch.einsum("bhqk,bhkd->bhqd", p, vf[:, :, lo:lo + KEY_TILE])
+        m = m_new
+    return (o / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def check_flash(dev, sq, kv_len, b=1, h=24, kvh=8, d=128, sdpa_gqa=False):
+    """The forward kernel against the plain forward at (b, sq = skv, h,
+    kvh, d) in the model's (b, s, h, d) memory, causal, keys past kv_len
+    masked.  Two launches must agree bitwise (o and lse).  Faults: the
+    last key tile dropped, each row's own key masked, the middle key tile
+    skipped, the rescale of O dropped.  The SDPA yardstick runs on K/V
+    repeated to every head (``sdpa_gqa``: on the same tensors with
+    ``enable_gqa``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
@@ -497,40 +567,52 @@ def check_flash(dev, sq, kv_len, h=24, kvh=8, d=128):
     g = torch.Generator(device=dev).manual_seed(2)
     bf = torch.bfloat16
     # the model's (b, s, h, d) layout, seen as (b, h, s, d) like the model
-    q = torch.randn(1, sq, h, d, device=dev, generator=g).to(bf)
-    k = torch.randn(1, sq, kvh, d, device=dev, generator=g).to(bf)
-    v = torch.randn(1, sq, kvh, d, device=dev, generator=g).to(bf)
+    q = torch.randn(b, sq, h, d, device=dev, generator=g).to(bf)
+    k = torch.randn(b, sq, kvh, d, device=dev, generator=g).to(bf)
+    v = torch.randn(b, sq, kvh, d, device=dev, generator=g).to(bf)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     got = flash_attention(qt, kt, vt, kv_len=kv_len)
+    o1, lse1 = flash_attention_fwd(qt, kt, vt, kv_len=kv_len, save_lse=True)
+    o2, lse2 = flash_attention_fwd(qt, kt, vt, kv_len=kv_len, save_lse=True)
+    bitwise = bool(torch.equal(got, o1) and torch.equal(o1, o2)
+                   and torch.equal(lse1, lse2))
+    del o1, o2, lse1, lse2
     ref = attention_ref(qt, kt, vt, kv_len=kv_len)
     err, used, ok = compare("flash_attention", got, ref)
+    del ref
+    kw = dict(kv_len=kv_len)
     ctl = controls("flash_attention", got, {
         "last key tile dropped": attention_ref(
             qt, kt, vt, kv_len=kv_len - KEY_TILE),
         "own key masked": attention_ref(qt, kt, vt, q_offset=-1,
-                                        kv_len=kv_len)})
-    kr = kt.repeat_interleave(h // kvh, dim=1).contiguous()
-    vr = vt.repeat_interleave(h // kvh, dim=1).contiguous()
-    qc = qt.contiguous()
-    if kv_len == sq:
-        lib = lambda: F.scaled_dot_product_attention(qc, kr, vr,  # noqa
-                                                     is_causal=True)
+                                        kv_len=kv_len),
+        "middle key tile skipped": middle_tile_skipped(qt, kt, vt, kw),
+        "rescale dropped": rescale_dropped(qt, kt, vt, kw)})
+    if sdpa_gqa:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
     else:
-        pos = torch.arange(sq, device=dev)
-        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] < kv_len)
-        lib = lambda: F.scaled_dot_product_attention(qc, kr, vr,  # noqa
-                                                     attn_mask=mask)
+        kr = kt.repeat_interleave(h // kvh, dim=1).contiguous()
+        vr = vt.repeat_interleave(h // kvh, dim=1).contiguous()
+        qc = qt.contiguous()
+        mask = None
+        if kv_len != sq:
+            pos = torch.arange(sq, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] < kv_len)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qc, kr, vr, attn_mask=mask, is_causal=mask is None)
     # work this input needs: causal pairs among the first kv_len keys
-    pairs = sum(min(i + 1, kv_len) for i in range(sq))
+    pairs = b * sum(min(i + 1, kv_len) for i in range(sq))
     # q read and o written; K and V only below kv_len (never fetched past)
-    nbytes = (2 * sq * h * d + 2 * min(sq, kv_len) * kvh * d) * 2
+    nbytes = b * (2 * sq * h * d + 2 * min(sq, kv_len) * kvh * d) * 2
     b_ms, b_by = bound(nbytes, 4 * d * h * pairs, "bf16_tensor")
     op_host, wrapper_host = host_ms_pair(
         lambda: flash_attention(qt, kt, vt, kv_len=kv_len),
         lambda: flash_attention_fwd(qt, kt, vt, kv_len=kv_len))
-    return {"case": f"sq=skv={sq},kv_len={kv_len},h={h},kvh={kvh},d={d}",
-            "max_abs_err": err, "tol_used": used, "ok": ok,
-            "controls": ctl,
+    return {"case": f"b={b},sq=skv={sq},kv_len={kv_len},h={h},kvh={kvh},"
+                    f"d={d}",
+            "max_abs_err": err, "tol_used": used, "ok": ok and bitwise,
+            "bitwise_repeat": bitwise, "controls": ctl,
             "ms": time_ms(lambda: flash_attention(qt, kt, vt,
                                                   kv_len=kv_len)),
             "host_ms": op_host, "host_ms_wrapper": wrapper_host,
@@ -930,7 +1012,8 @@ def kernel_phase(dev):
     zamba2-1.2b's (the gated rmsnorm over d_inner 4096 and the pre-norms
     over d 2048; the shared block's attention, 32 heads of 64 without
     grouping: fresh prefill, decode tick, prefill chunk, and a 256-token
-    continuation chunk against the dense-cache view)."""
+    continuation chunk against the dense-cache view); last, the flash
+    forward at both training steps' shapes (b 2 x 2048)."""
     cases = {"rmsnorm": [], "flash_attention": [],
              "paged_chunk_attention": []}
     for n in (8, 4096):
@@ -950,6 +1033,10 @@ def kernel_phase(dev):
         cases["rmsnorm"].append(check_rmsnorm(dev, 4096, d))
     for sq in (512, 2048):
         cases["flash_attention"].append(check_flash(dev, sq, sq, **hd64))
+    # the training steps' shapes: phi4-mini-3.8b's and zamba2-1.2b's
+    for kw in (dict(h=24, kvh=8, d=128), hd64):
+        cases["flash_attention"].append(check_flash(dev, 2048, 2048, b=2,
+                                                    sdpa_gqa=True, **kw))
     for T in (1, 16):
         pc.append(check_paged(dev, kv_dtype="bfloat16", T=T, bs=16, **hd64))
     pc.append(check_paged(dev, kv_dtype="bfloat16", T=256, bs=0, b=1,
@@ -3041,19 +3128,19 @@ def main():
     for name, log in build.build_logs.items():
         for fn, line in ptxas_lines(log):
             print(f"ptxas {name} {fn}: {line}", flush=True)
-    if "flash_attention_bwd" in build.build_logs:
-        failures += [f"flash_attention_bwd {fn}: ptxas spills: {line}"
-                     for fn, line in
-                     spills(build.build_logs["flash_attention_bwd"])]
-    else:
-        print("ptxas flash_attention_bwd: library from the build cache, its "
-              "ptxas lines (spills) not read in this run", flush=True)
-    hgmma = sass_count("flash_attention_bwd", "HGMMA")
-    print(json.dumps({"sass": "flash_attention_bwd", "HGMMA": hgmma}),
-          flush=True)
-    if hgmma == 0:
-        failures.append("flash_attention_bwd: no HGMMA (wgmma) instruction "
-                        "in its SASS")
+    # the wgmma kernels: no spill in a fresh build, HGMMA in the SASS
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        if lib in build.build_logs:
+            failures += [f"{lib} {fn}: ptxas spills: {line}"
+                         for fn, line in spills(build.build_logs[lib])]
+        else:
+            print(f"ptxas {lib}: library from the build cache, its ptxas "
+                  "lines (spills) not read in this run", flush=True)
+        hgmma = sass_count(lib, "HGMMA")
+        print(json.dumps({"sass": lib, "HGMMA": hgmma}), flush=True)
+        if hgmma == 0:
+            failures.append(f"{lib}: no HGMMA (wgmma) instruction in its "
+                            "SASS")
 
     def timed(name, fn):
         t = now()

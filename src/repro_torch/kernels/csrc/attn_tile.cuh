@@ -1,5 +1,6 @@
-// Shared tile machinery of the two attention kernels (flash_attention
-// forward and paged_chunk_attention) for sm_90a.
+// Tile machinery of the paged chunk-attention kernel
+// (paged_chunk_attention.cu) for sm_90a, its one user: the flash forward
+// moved to wgmma and TMA (flash_attention_fwd.cu, on hopper.cuh).
 //
 // One CUDA block owns BQ = 64 query rows and walks the keys in tiles of
 // BK = 64.  Four warps split the rows: warp w owns rows 16w..16w+15 and
@@ -11,7 +12,7 @@
 // the output accumulator O (fp32, in shared memory so it can be rescaled
 // row by row) follow the flash-attention recurrence.
 //
-// Masking contract (both kernels): a score that is not valid gets
+// Masking contract: a score that is not valid gets
 // probability exactly 0 after the exp, not only a -1e30 logit, so a row
 // that sees no valid key keeps l == 0 and the guarded divide writes an
 // exact zero row -- never NaN.

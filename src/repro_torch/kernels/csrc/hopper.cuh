@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the port's CUDA kernels: TMA
-// tensor maps and loads, mbarriers, register reallocation between
-// warpgroups, and warpgroup matrix multiplies (wgmma) with shared-memory
-// descriptors and register A operands.
+// Hopper (sm_90a) building blocks of the flash-attention kernels (forward
+// and backward): TMA tensor maps and loads, mbarriers, named barriers,
+// register reallocation between warpgroups, and warpgroup matrix
+// multiplies (wgmma) with shared-memory descriptors and register A
+// operands.
 //
 // Shared-memory tiles are kept in the layout that a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 64 bf16 (128 bytes), 16-byte
@@ -25,8 +26,9 @@
 // each 8-column group j, rows 16w + l/4 (+ 8) and columns 8j + 2(l%4)
 // (+ 1) as d[4j + 2i + c] (row + 8i, column + c).  acc_to_a repacks such
 // a result, rounded to bf16, as the register A operand of a following
-// product whose K axis is the result's columns -- so S, P, dP and dS of
-// the attention backward never touch shared memory.
+// product whose K axis is the result's columns -- so S and P of the
+// attention forward, and S, P, dP and dS of its backward, never touch
+// shared memory.
 #pragma once
 
 #include <cuda.h>
@@ -152,6 +154,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// Named barrier `id` (1..15; 0 is __syncthreads) of `count` threads:
+// wait for it, or arrive on it without waiting.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // Registers: a producer warpgroup gives its registers back, consumers take
 // them (all four warps of a warpgroup execute these together).
 template <int N>
@@ -200,6 +212,36 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep registers that a wgmma in flight reads (a register A operand) or
+// writes (its accumulator) where they are, up to this point: the compiler
+// may neither move nor reuse them in between, nor move their other uses
+// across a wait.  ptxas serializes every wgmma of a kernel in which an
+// instruction other than a wgmma defines a wgmma's input between
+// wgmma_fence and the wait that retires it, so a product's descriptors
+// and register operands are made before its wgmma_fence.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+// 2^x on the special-function unit, denormal results flushed to 0 (exp2f
+// adds a range reduction for them): one instruction
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -303,6 +345,18 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
         "n"(TRANS_B));
+}
+
+// acc (64 x HD) += A (64 x 16, registers) B (16 x HD, MN-major): the
+// second product of attention (O += P V, dQ += dS K, ...), HD 64 or 128.
+template <int HD>
+__device__ __forceinline__ void mma_rs(float (&acc)[HD / 2],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (HD == 128) {
+    wgmma_rs_n128<1>(acc, a, db, 1);
+  } else {
+    wgmma_rs_n64<1>(acc, a, db, 1);
+  }
 }
 
 }  // namespace hopper

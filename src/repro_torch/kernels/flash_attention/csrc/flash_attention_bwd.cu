@@ -136,17 +136,6 @@ __device__ __forceinline__ int tile_class(const Params& p, int q0, int k0,
   return 2;
 }
 
-// acc (64 x HD) += A (64 x 16, registers) B (16 x HD, MN-major)
-template <int HD>
-__device__ __forceinline__ void mma_rs(float (&acc)[HD / 2],
-                                       const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HD == 128) {
-    wgmma_rs_n128<1>(acc, a, db, 1);
-  } else {
-    wgmma_rs_n64<1>(acc, a, db, 1);
-  }
-}
-
 template <int HD>
 __device__ __forceinline__ void store_rows(const float (&acc)[HD / 2],
                                            bf16* base, const Strides& st,

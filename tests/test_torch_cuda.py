@@ -28,20 +28,49 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sq,skv,kv_len,d", [(200, 200, 200, 128),
-                                             (64, 300, 250, 128),
-                                             (100, 100, 90, 64)])
-def test_flash_kernel_matches_plain_on_card(cuda, sq, skv, kv_len, d):
+@pytest.mark.parametrize(
+    "sq,skv,kv_len,d,q_offset,kvh,layout",
+    [(200, 200, 200, 128, None, 2, "bhsd"),
+     (64, 300, 250, 128, None, 2, "bhsd"),
+     (100, 100, 90, 64, None, 2, "bhsd"),
+     (64, 300, 250, 128, 100, 2, "bhsd"),      # q_offset > 0
+     (129, 129, 129, 64, None, 2, "bhsd"),     # a ragged 64-row tile
+     (200, 200, 200, 128, None, 6, "bhsd"),    # GQA group of 1
+     (300, 300, 280, 128, None, 2, "bshd")])   # the model's strides
+def test_flash_kernel_matches_plain_on_card(cuda, sq, skv, kv_len, d,
+                                            q_offset, kvh, layout):
+    """The forward kernel against the plain forward, in contiguous
+    (b, h, s, d) memory or as views over the model's (b, s, h, d)."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     bf = torch.bfloat16
-    q = torch.randn(2, 6, sq, d, device=cuda, dtype=bf)
-    k = torch.randn(2, 2, skv, d, device=cuda, dtype=bf)
-    v = torch.randn(2, 2, skv, d, device=cuda, dtype=bf)
-    got = flash_attention(q, k, v, kv_len=kv_len)
-    ref = attention_ref(q, k, v, kv_len=kv_len)
+
+    def t(s, heads):
+        if layout == "bshd":
+            return torch.randn(2, s, heads, d, device=cuda,
+                               dtype=bf).transpose(1, 2)
+        return torch.randn(2, heads, s, d, device=cuda, dtype=bf)
+    q, k, v = t(sq, 6), t(skv, kvh), t(skv, kvh)
+    got = flash_attention(q, k, v, q_offset=q_offset, kv_len=kv_len)
+    ref = attention_ref(q, k, v, q_offset=q_offset, kv_len=kv_len)
     torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_forward_kernel_is_deterministic_on_card(cuda, d):
+    """Two launches on the same inputs give the same bits (o and lse): no
+    atomics, no split of the key axis."""
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_fwd
+    bf = torch.bfloat16
+    q = torch.randn(2, 1000, 8, d, device=cuda, dtype=bf).transpose(1, 2)
+    k = torch.randn(2, 1000, 2, d, device=cuda, dtype=bf).transpose(1, 2)
+    v = torch.randn(2, 1000, 2, d, device=cuda, dtype=bf).transpose(1, 2)
+    o1, lse1 = flash_attention_fwd(q, k, v, save_lse=True)
+    o2, lse2 = flash_attention_fwd(q, k, v, save_lse=True)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
 
 
 @pytest.mark.cuda

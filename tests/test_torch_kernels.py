@@ -349,3 +349,48 @@ def test_chip_smoke_flash_faults_drop_exactly_their_work():
     got = chip_smoke.stage_skipped(tq, tk, tv, tdo, lse, delta, kw)
     for g, want in zip(got, _pairs_backward(*f64, *saved, no_stage)[1:]):
         np.testing.assert_allclose(g.numpy(), want, atol=TOL, rtol=TOL)
+
+
+def test_chip_smoke_flash_forward_faults_drop_exactly_their_work():
+    """chip_smoke.py's planted faults of the flash forward kernel do what
+    they name and nothing else: "middle key tile skipped" is the forward
+    over the kept pairs minus the middle 64-key tile below kv_len; "rescale
+    dropped" adds each 64-key tile's exp(s - m) v with m the running max
+    after that tile and never rescales it, over the normaliser of all kept
+    pairs (against float64 numpy sums over exactly those pairs)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    b, sq, skv, h, kvh, d, kv_len = 1, 120, 150, 4, 2, 16, 140
+    q = _np((b, h, sq, d))
+    k, v = _np((b, kvh, skv, d)), _np((b, kvh, skv, d))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    kw = dict(kv_len=kv_len)
+    kk = np.repeat(k, h // kvh, axis=1).astype(np.float64)
+    vv = np.repeat(v, h // kvh, axis=1).astype(np.float64)
+    s = q.astype(np.float64) @ kk.swapaxes(-1, -2) * d ** -0.5
+    qpos = (skv - sq) + np.arange(sq)[:, None]
+    kpos = np.arange(skv)[None, :]
+    valid = (kpos <= qpos) & (kpos < kv_len)
+
+    def forward(keep):
+        e = np.where(keep, np.exp(s - np.where(keep, s, -np.inf).max(
+            -1, keepdims=True)), 0.0)
+        return (e @ vv) / e.sum(-1, keepdims=True)
+
+    keep = valid & ~((kpos >= 64) & (kpos < 128))
+    np.testing.assert_allclose(
+        chip_smoke.middle_tile_skipped(tq, tk, tv, kw).numpy(),
+        forward(keep), atol=TOL, rtol=TOL)
+    m_final = np.where(valid, s, -np.inf).max(-1, keepdims=True)
+    o = np.zeros((b, h, sq, d))
+    m = np.full((b, h, sq, 1), -np.inf)
+    for lo in range(0, skv, 64):
+        tile = valid & (kpos >= lo) & (kpos < lo + 64)
+        m = np.maximum(m, np.where(tile, s, -np.inf).max(-1, keepdims=True))
+        o += np.where(tile, np.exp(s - m), 0.0) @ vv
+    l = np.where(valid, np.exp(s - m_final), 0.0).sum(-1, keepdims=True)
+    np.testing.assert_allclose(
+        chip_smoke.rescale_dropped(tq, tk, tv, kw).numpy(), o / l,
+        atol=TOL, rtol=TOL)
