@@ -10,8 +10,9 @@ Phases (any failure exits non-zero and prints no result line):
    sources in this checkout (one nvcc per CUDA source, all at once; the
    Triton rmsnorm kernels compile at their first call); print each
    kernel's ptxas registers and spills, and the count of HGMMA (wgmma)
-   instructions in the SASS of the flash forward and backward libraries,
-   which must not be 0 (nor may a freshly built one spill).
+   instructions in the SASS of the flash forward, flash backward and
+   paged libraries, which must not be 0 (nor may a freshly built one
+   spill).
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card, at the shapes phi4-mini-3.8b's serving and training
    paths give it, with its time, the plain version's time, one PyTorch
@@ -27,7 +28,15 @@ Phases (any failure exits non-zero and prints no result line):
    kernel's key tiles skipped); each of those must fail the tolerance.
    The flash forward runs also at the training steps' shapes (phi4's and
    zamba2's, b 2 x 2048) beside SDPA with enable_gqa, and every flash
-   forward case must repeat bitwise.  The backward
+   forward case must repeat bitwise.  The paged kernel runs at the
+   serving path's shapes (decode ticks, T 16 chunks, the dense-cache
+   view, a 256-token prefill chunk; bf16, fp8 and int8 pools; d 128 and
+   64), at b 8 over S 4096 (several key splits an item) and with edge
+   sequences (only key 0, full capacity, all padding); every case must
+   repeat bitwise and write exact zeros for padding rows, its faults
+   include "one split dropped" and "combine rescale dropped", and it is
+   timed warm (``ms``) and cold (``ms_cold``, each call on its own copy
+   of the pools, > 64 MB of K/V between two uses).  The backward
    cases also hold the forward kernels' residuals (rstd, lse) against the
    plain forward's, and the chain forward kernel -> backward kernels
    against plain forward -> plain backward; the flash backward kernels
@@ -169,11 +178,14 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 8
 TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd_dx", "rmsnorm_bwd_dw",
                  "flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq")
-# rows per tile: BK of the paged kernel (kernels/csrc/attn_tile.cuh, which
-# only the paged kernel uses now), TILE of the flash forward's key tiles
+# rows per tile: TILE of the paged kernel's streamed K / V tiles
+# (paged_chunk_attention.cu), of the flash forward's key tiles
 # (flash_attention_fwd.cu) and of the flash backward's streamed tiles
 # (flash_attention_bwd.cu)
 KEY_TILE = 64
+# the paged kernel's cold timing: touched K/V bytes between two uses of
+# one copy of the pools, above the H100's 50 MB L2
+COLD_BYTES = 64 * 2 ** 20
 
 # the MoE family: qwen2-moe-a2.7b serves at full width (24 layers) and
 # trains at full widths with its depth cut to MOE_TRAIN_LAYERS, so that
@@ -621,13 +633,100 @@ def check_flash(dev, sq, kv_len, b=1, h=24, kvh=8, d=128, sdpa_gqa=False):
             "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
 
 
+def _paged_scores(q, kp, vp, bt, ps, ks=None, vs=None):
+    """As the plain version sees a paged call: scores s (b, h, T, S) fp32
+    (scaled), the (b, T, S) mask of the valid (row, key) pairs and V
+    (b, S, h, d) fp32, gathered, dequantized and repeated to every head."""
+    import torch
+    from repro_torch.kernels.paged_chunk_attention.ref import _gather
+    b, T, h, d = q.shape
+    kvh = kp.shape[2]
+    tables = bt.long()
+    k = _gather(kp, tables).reshape(b, -1, kvh, d).float()
+    v = _gather(vp, tables).reshape(b, -1, kvh, d).float()
+    if ks is not None:
+        k = k * ks[tables].reshape(b, -1)[:, :, None, None]
+        v = v * vs[tables].reshape(b, -1)[:, :, None, None]
+    k = k.repeat_interleave(h // kvh, dim=2)
+    v = v.repeat_interleave(h // kvh, dim=2)
+    s = torch.einsum("bthd,bshd->bhts", q.float(), k) * d ** -0.5
+    kpos = torch.arange(k.shape[1], device=q.device)
+    valid = kpos[None, None, :] <= ps.long()[:, :, None]
+    return s, valid, v
+
+
+def split_combine(q, kp, vp, bt, ps, ks=None, vs=None, *, split_keys,
+                  fault=None):
+    """The plain version computed as the paged kernel splits it: the key
+    axis cut into ranges of ``split_keys``, each range's (m, l, O) over
+    its valid keys, and the combine of the ranges that start at or before
+    a row's position, O = sum_s w_s O_s / sum_s w_s l_s with w_s =
+    exp(m_s - max m) (a row at position < 0 reads none: zeros).  Faults:
+    "one split dropped" (each row's last split -- the one holding its own
+    position -- left out of the combine), "combine rescale dropped" (w_s
+    = 1: partials summed without exp(m_s - max m))."""
+    import torch
+    s, valid, v = _paged_scores(q, kp, vp, bt, ps, ks, vs)
+    b, h, T, S = s.shape
+    pos = ps.long()
+    nv = torch.where(pos >= 0, pos.clamp(max=S - 1) // split_keys + 1, 0)
+    if fault == "one split dropped":
+        nv = (nv - 1).clamp(min=0)
+    neg = torch.tensor(-1e30, device=q.device)
+    parts = []
+    for i in range(-(-S // split_keys)):
+        lo, hi = i * split_keys, min((i + 1) * split_keys, S)
+        ok = valid[:, None, :, lo:hi]                       # (b, 1, T, k)
+        si = s[..., lo:hi].masked_fill(~ok, float("-inf"))
+        m = torch.maximum(si.amax(-1, keepdim=True), neg)   # (b, h, T, 1)
+        p = torch.where(ok, torch.exp(si - m), 0.0)
+        use = (i < nv)[:, None, :, None]
+        parts.append((torch.where(use, m, neg),
+                      p.sum(-1, keepdim=True) * use,
+                      torch.einsum("bhtk,bkhd->bhtd", p, v[:, lo:hi]) * use))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    num = torch.zeros_like(parts[0][2])
+    den = torch.zeros_like(parts[0][1])
+    for m, l, o in parts:
+        w = (torch.ones_like(m) if fault == "combine rescale dropped"
+             else torch.exp(m - mx))
+        num, den = num + w * o, den + w * l
+    o = torch.where(den > 0, num / den.clamp_min(1e-30), 0.0)
+    return o.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def cold_ms(calls, iters=None):
+    """``time_ms`` of ``calls`` taken in turn, each on its own copy of the
+    inputs, so that a call finds its data evicted from the 50 MB L2 by
+    the others (the caller makes enough copies)."""
+    state = {"i": 0}
+
+    def run():
+        calls[state["i"] % len(calls)]()
+        state["i"] += 1
+    return time_ms(run, iters or max(20, 2 * len(calls)))
+
+
 def check_paged(dev, *, kv_dtype, T, bs, b=8, h=24, kvh=8, d=128,
-                dense_view=False, cap=1024, seed=3):
+                dense_view=False, cap=1024, seed=3, edges=False):
+    """The paged kernel against the plain version at (b, T, h / kvh, d)
+    over a fragmented pool of block size ``bs`` (or the dense-cache view,
+    one block of ``cap`` a sequence).  A padded tail in sequence 0 and an
+    idle last slot (position -1); with ``edges`` also a sequence whose
+    only key is position 0 and two at full capacity.  The kernel must
+    repeat bitwise and write exact zeros for padding rows; the planted
+    faults include the split kernel's own ("one split dropped",
+    "combine rescale dropped") at the split the wrapper picks.  ``ms``
+    replays the same call (its K/V then sit in L2), ``ms_cold`` cycles
+    through copies of the pools, more than 64 MB of touched K/V between
+    two uses of one copy, as a serving tick finds each layer's pool."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_chunk_attention import (
         paged_chunk_attention, paged_chunk_attention_ref)
+    from repro_torch.kernels.paged_chunk_attention.kernel import (
+        _sms, paged_chunk_attention_fwd, split_plan)
     from repro_torch.models.attention import KV_DTYPES, bits, quantize_kv
     rng = np.random.default_rng(seed)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -637,6 +736,9 @@ def check_paged(dev, *, kv_dtype, T, bs, b=8, h=24, kvh=8, d=128,
     pos[0, -min(T, 4):] = -1                  # padding rows -> exact zeros
     if b > 1:
         pos[-1, :] = -1                       # an idle slot
+    if edges:
+        pos[1] = np.maximum(np.arange(1 - T, 1), -1)   # only key: 0
+        pos[2] = pos[3] = np.arange(cap - T, cap)        # full capacity
     if dense_view:
         bs, nbmax, nb = cap, 1, b
         tables = np.arange(b, dtype=np.int32)[:, None]
@@ -655,12 +757,17 @@ def check_paged(dev, *, kv_dtype, T, bs, b=8, h=24, kvh=8, d=128,
     q = torch.randn(b, T, h, d, device=dev, generator=g).bfloat16()
     bt = torch.as_tensor(tables, device=dev)
     ps = torch.as_tensor(pos.astype(np.int32), device=dev)
-    got = paged_chunk_attention(q, kp, vp, bt, ps, ks, vs)
-    ref = paged_chunk_attention_ref(q, kp, vp, bt, ps, ks, vs)
+    args = (q, kp, vp, bt, ps, ks, vs)
+    got = paged_chunk_attention(*args)
+    o1, o2 = paged_chunk_attention_fwd(*args), paged_chunk_attention_fwd(*args)
+    bitwise = bool(torch.equal(got, o1) and torch.equal(o1, o2))
+    del o1, o2
+    ref = paged_chunk_attention_ref(*args)
     err, used, ok = compare("paged_chunk_attention", got, ref)
     # planted faults: each sequence's last key tile (the one holding its
     # largest position) skipped; each row's own key masked; for fp8 /
-    # int8 pools, the scales ignored
+    # int8 pools, the scales ignored; the split kernel's combine one
+    # split short, and without its rescale
     last = (ps.max(dim=1, keepdim=True).values // KEY_TILE) * KEY_TILE
     faulty = {"last key tile dropped": paged_chunk_attention_ref(
         q, kp, vp, bt, torch.where(ps >= 0, torch.minimum(ps, last - 1), ps),
@@ -670,11 +777,17 @@ def check_paged(dev, *, kv_dtype, T, bs, b=8, h=24, kvh=8, d=128,
     if ks is not None:
         faulty["scales ignored"] = paged_chunk_attention_ref(q, kp, vp, bt,
                                                              ps)
+    S = tables.shape[1] * bs
+    n_split, split_keys = split_plan(S, bs, b, kvh, T * (h // kvh), _sms(dev))
+    if n_split > 1:
+        for fault in ("one split dropped", "combine rescale dropped"):
+            faulty[fault] = split_combine(*args, split_keys=split_keys,
+                                          fault=fault)
     ctl = controls("paged_chunk_attention", got, faulty)
+    del faulty
     pad = ps < 0
     zeros_ok = bool(torch.all(got[pad] == 0))
     # library yardstick: SDPA on K/V gathered and dequantized beforehand
-    S = tables.shape[1] * bs
     kg = bits(kp)[bt.long()].view(kp.dtype).reshape(b, S, kvh, d).float()
     vg = bits(vp)[bt.long()].view(vp.dtype).reshape(b, S, kvh, d).float()
     if ks is not None:
@@ -693,25 +806,38 @@ def check_paged(dev, *, kv_dtype, T, bs, b=8, h=24, kvh=8, d=128,
     # largest query position, once; every valid (row, key) pair for the
     # products
     elt = kp.element_size()
-    need = np.maximum(pos.max(axis=1) + 1, 0)
+    need = np.minimum(np.maximum(pos.max(axis=1) + 1, 0), S)
     rows = int((pos >= 0).sum())
-    nbytes = ((rows + b * T) * h * d * 2
-              + int(need.sum()) * kvh * d * elt * 2
+    kv_bytes = int(need.sum()) * kvh * d * elt * 2
+    nbytes = ((rows + b * T) * h * d * 2 + kv_bytes
               + (int(need.sum()) * 4 * 2 if ks is not None else 0)
               + int((-(-need // bs)).sum()) * 4 + ps.numel() * 4)
-    pairs = int(np.where(pos >= 0, pos + 1, 0).sum()) * h
+    pairs = int(np.where(pos >= 0, np.minimum(pos + 1, S), 0).sum()) * h
     b_ms, b_by = bound(nbytes, 4 * d * pairs, "bf16_tensor")
-    view = f"dense-view S={cap}" if dense_view else f"bs={bs}"
+    op_host, wrapper_host = host_ms_pair(
+        lambda: paged_chunk_attention(*args),
+        lambda: paged_chunk_attention_fwd(*args))
+    ms = time_ms(lambda: paged_chunk_attention(*args))
+    # cold: copies of the pools, > 64 MB of touched K/V between two uses
+    copies = [args] + [
+        (q, kp.clone(), vp.clone(), bt, ps,
+         None if ks is None else ks.clone(),
+         None if vs is None else vs.clone())
+        for _ in range(max(1, -(-COLD_BYTES // max(kv_bytes, 1))))]
+    ms_cold = cold_ms([lambda a=a: paged_chunk_attention(*a) for a in copies])
+    del copies
+    view = f"dense-view S={cap}" if dense_view else f"bs={bs},S={S}"
     res = {"case": f"{view},T={T},b={b},{kv_dtype},fragmented="
-                   f"{not dense_view},h={h},kvh={kvh},d={d}",
-           "max_abs_err": err, "tol_used": used, "ok": ok and zeros_ok,
+                   f"{not dense_view},h={h},kvh={kvh},d={d}"
+                   + (",edges" if edges else ""),
+           "split": {"n_split": n_split, "split_keys": split_keys},
+           "max_abs_err": err, "tol_used": used,
+           "ok": ok and zeros_ok and bitwise, "bitwise_repeat": bitwise,
            "padding_rows_zero": zeros_ok, "controls": ctl,
-           "ms": time_ms(lambda: paged_chunk_attention(q, kp, vp, bt, ps,
-                                                       ks, vs)),
-           "host_ms": host_ms(lambda: paged_chunk_attention(q, kp, vp, bt,
-                                                            ps, ks, vs)),
-           "plain_ms": time_ms(lambda: paged_chunk_attention_ref(
-               q, kp, vp, bt, ps, ks, vs), 5),
+           "ms": ms, "ms_cold": ms_cold,
+           "bound_share": b_ms / ms, "cold_bound_share": b_ms / ms_cold,
+           "host_ms": op_host, "host_ms_wrapper": wrapper_host,
+           "plain_ms": time_ms(lambda: paged_chunk_attention_ref(*args), 5),
            "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
     return res
 
@@ -1028,6 +1154,13 @@ def kernel_phase(dev):
     for T, b in ((1, 8), (16, 8), (256, 1)):
         pc.append(check_paged(dev, kv_dtype="bfloat16", T=T, bs=0, b=b,
                               dense_view=True))
+    # several splits an item (b 8 at S 4096), and the edges: a sequence
+    # whose only key is position 0, two at full capacity, an idle one
+    for kv_dtype, T in (("bfloat16", 1), ("bfloat16", 16), ("int8", 1)):
+        pc.append(check_paged(dev, kv_dtype=kv_dtype, T=T, bs=16, cap=4096))
+    pc.append(check_paged(dev, kv_dtype="bfloat16", T=16, bs=16, edges=True))
+    pc.append(check_paged(dev, kv_dtype="float8_e4m3", T=1, bs=16, cap=4096,
+                          edges=True))
     hd64 = dict(h=32, kvh=32, d=64)
     for d in (4096, 2048):
         cases["rmsnorm"].append(check_rmsnorm(dev, 4096, d))
@@ -1041,6 +1174,8 @@ def kernel_phase(dev):
         pc.append(check_paged(dev, kv_dtype="bfloat16", T=T, bs=16, **hd64))
     pc.append(check_paged(dev, kv_dtype="bfloat16", T=256, bs=0, b=1,
                           dense_view=True, **hd64))
+    pc.append(check_paged(dev, kv_dtype="bfloat16", T=1, bs=16, cap=4096,
+                          edges=True, **hd64))
     return cases
 
 
@@ -1600,8 +1735,9 @@ def profiled(run, top=12):
     def op(e):
         return {"op": e.key[:80], "calls": e.count,
                 "device_ms": dev_us(e) / 1e3}
-    # the port's attention kernels (flash forward and backward, paged)
-    attn = [e for e in rows if "flash_" in e.key or "paged_chunk" in e.key]
+    # the port's attention kernels (flash forward and backward, the paged
+    # split and combine)
+    attn = [e for e in rows if "flash_" in e.key or "paged_" in e.key]
     attn_ms = sum(dev_us(e) for e in attn) / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
@@ -3129,7 +3265,8 @@ def main():
         for fn, line in ptxas_lines(log):
             print(f"ptxas {name} {fn}: {line}", flush=True)
     # the wgmma kernels: no spill in a fresh build, HGMMA in the SASS
-    for lib in ("flash_attention", "flash_attention_bwd"):
+    for lib in ("flash_attention", "flash_attention_bwd",
+                "paged_chunk_attention"):
         if lib in build.build_logs:
             failures += [f"{lib} {fn}: ptxas spills: {line}"
                          for fn, line in spills(build.build_logs[lib])]
@@ -3249,7 +3386,8 @@ def main():
             "ms": r["ms"], "host_ms": r["host_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("plain_covers", "library_covers")
+            **{k: r[k] for k in ("ms_cold", "host_ms_wrapper",
+                                 "plain_covers", "library_covers")
                if k in r}})
     print(json.dumps({"model": {k: e2e[k] for k in
                                 ("arch", "params", "peak_mem_gb")}}),

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels (forward
-// and backward): TMA tensor maps and loads, mbarriers, named barriers,
+// Hopper (sm_90a) building blocks of the attention kernels (the flash
+// forward and backward, paged chunk attention): TMA tensor maps and
+// loads, mbarriers, named barriers,
 // register reallocation between warpgroups, and warpgroup matrix
 // multiplies (wgmma) with shared-memory descriptors and register A
 // operands.

@@ -96,6 +96,47 @@ def test_paged_kernel_matches_plain_on_card(cuda, kv_dtype, d):
     torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
     assert torch.all(got[1, -2:] == 0)
+    # several splits an item (b 8 at S 4096), sequence 0 whose only key
+    # is position 0, one at full capacity and an all-padding one
+    b, T, nbmax = 8, 2, 4096 // bs
+    nb = b * nbmax
+    q = torch.randn(b, T, h, d, device=cuda, dtype=torch.bfloat16)
+    kp, ks = quantize_kv(torch.randn(nb, bs, kvh, d, device=cuda),
+                         KV_DTYPES[kv_dtype])
+    vp, vs = quantize_kv(torch.randn(nb, bs, kvh, d, device=cuda),
+                         KV_DTYPES[kv_dtype])
+    bt = torch.randperm(nb, device=cuda).reshape(b, nbmax).int()
+    pos = torch.randint(T, 4096, (b, 1)) + torch.arange(1 - T, 1)
+    pos[0] = torch.tensor([-1, 0])
+    pos[1] = torch.tensor([4094, 4095])
+    pos[2] = -1
+    pos = pos.int().to(cuda)
+    got = paged_chunk_attention(q, kp, vp, bt, pos, ks, vs)
+    ref = paged_chunk_attention_ref(q, kp, vp, bt, pos, ks, vs)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert torch.all(got[0, 0] == 0) and torch.all(got[2] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_kernel_is_deterministic_on_card(cuda, d):
+    """Two launches on the same inputs give the same bits: the key
+    splits are merged in a fixed order, with no atomics."""
+    from repro_torch.kernels.paged_chunk_attention.kernel import (
+        _sms, paged_chunk_attention_fwd, split_plan)
+    b, T, h, kvh, bs, nbmax = 8, 3, 8, 2, 16, 128
+    assert split_plan(bs * nbmax, bs, b, kvh, T * h // kvh,
+                      _sms(cuda))[0] > 1
+    q = torch.randn(b, T, h, d, device=cuda, dtype=torch.bfloat16)
+    kp = torch.randn(b * nbmax, bs, kvh, d, device=cuda, dtype=torch.bfloat16)
+    vp = torch.randn(b * nbmax, bs, kvh, d, device=cuda, dtype=torch.bfloat16)
+    bt = torch.randperm(b * nbmax, device=cuda).reshape(b, nbmax).int()
+    pos = (torch.randint(T, bs * nbmax, (b, 1)) + torch.arange(1 - T, 1))
+    pos = pos.int().to(cuda)
+    o1 = paged_chunk_attention_fwd(q, kp, vp, bt, pos)
+    o2 = paged_chunk_attention_fwd(q, kp, vp, bt, pos)
+    assert torch.equal(o1, o2)
 
 
 @pytest.mark.cuda

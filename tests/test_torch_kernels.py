@@ -3,9 +3,10 @@ backward — against the JAX package's plain paths on the CPU (fp32,
 <= 1e-5), and the rmsnorm and flash-attention ``autograd.Function``s
 on CPU tensors against torch autograd of the plain forwards.
 
-The JAX side runs its jnp references only (``rmsnorm_ref``,
+The JAX side runs its jnp references (``rmsnorm_ref``,
 ``direct_attention``, ``paged_chunk_attention_ref``) and their JAX
-autodiff, never Pallas interpret mode.  Inputs are drawn with numpy and
+autodiff; only the check of chip_smoke.py's paged split helper runs the
+Pallas kernel in interpret mode.  Inputs are drawn with numpy and
 handed to both.  The kernels themselves are held against these plain
 versions on the card by tests/test_torch_cuda.py and chip_smoke.py."""
 import numpy as np
@@ -394,3 +395,80 @@ def test_chip_smoke_flash_forward_faults_drop_exactly_their_work():
     np.testing.assert_allclose(
         chip_smoke.rescale_dropped(tq, tk, tv, kw).numpy(), o / l,
         atol=TOL, rtol=TOL)
+
+
+# ----------------------- the paged kernel's key split -----------------------
+
+@pytest.mark.parametrize("cap,bs,b,kvh,rows", [
+    (1024, 16, 8, 8, 3),        # decode tick, phi4 (T 1, group 3)
+    (1024, 1024, 8, 8, 48),     # dense-cache view, T 16
+    (1024, 1024, 1, 8, 768),    # a 256-token prefill chunk
+    (777, 777, 2, 2, 5),        # an odd capacity (a ragged last tile)
+    (4096, 16, 8, 32, 1),       # long cache, zamba2's 32 kv heads
+    (40000, 1, 1, 1, 1)],       # block size 1: pages a split may span
+    ids=["decode", "dense_view", "T256", "odd_capacity", "S4096",
+         "bs1"])
+def test_paged_split_plan_puts_every_key_in_one_split(cap, bs, b, kvh, rows):
+    """kernel.py:split_plan cuts [0, cap) into n_split ranges of
+    split_keys keys (a multiple of the kernel's 64-key tile): every key
+    position lies in exactly one range, no range is empty, and no range
+    spans more pages than the kernel's page table holds."""
+    from repro_torch.kernels.paged_chunk_attention.kernel import (
+        KEY_TILE, MAX_PAGES, split_plan)
+    for sms in (1, 132):
+        n, k = split_plan(cap, bs, b, kvh, rows, sms)
+        assert n >= 1 and k > 0 and k % KEY_TILE == 0
+        hits = np.zeros(cap, np.int64)
+        for s in range(n):
+            lo, hi = s * k, min((s + 1) * k, cap)
+            assert lo < hi
+            hits[lo:hi] += 1
+            assert (hi - 1) // bs - lo // bs + 1 <= MAX_PAGES
+        np.testing.assert_array_equal(hits, 1)
+        assert (k + bs - 1) // bs + 1 <= MAX_PAGES     # the kernel's check
+    # the split of the decode tick: several splits, one block each
+    if (cap, rows) == (1024, 3):
+        assert split_plan(cap, bs, b, kvh, rows, 132)[0] > 1
+
+
+def test_chip_smoke_paged_split_faults_drop_exactly_their_work():
+    """chip_smoke.py's split helper, with no fault, is the JAX paged
+    kernel (Pallas, interpret mode) on a small int8 case cut into two
+    splits; with "one split dropped" (each row's last split left out of
+    the combine) and "combine rescale dropped" (partials summed without
+    exp(m_s - max m)) it is not."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro.kernels.paged_chunk_attention import \
+        paged_chunk_attention as jpaged
+    from repro.models.attention import quantize_kv
+    rng = np.random.default_rng(11)
+    b, T, h, kvh, d, bs, nbmax = 2, 3, 4, 2, 32, 16, 8
+    nb = b * nbmax + 1
+    q = rng.standard_normal((b, T, h, d)).astype(np.float32)
+    kq, ks = quantize_kv(jnp.asarray(rng.standard_normal(
+        (nb, bs, kvh, d)).astype(np.float32)), jnp.int8)
+    vq, vs = quantize_kv(jnp.asarray(rng.standard_normal(
+        (nb, bs, kvh, d)).astype(np.float32)), jnp.int8)
+    bt = (rng.permutation(nb - 1)[:b * nbmax] + 1).reshape(
+        b, nbmax).astype(np.int32)
+    # sequence 0 reads both 64-key splits; sequence 1: its only key is
+    # position 0, then position 1, then a padding row
+    pos = np.asarray([[98, 99, 100], [0, 1, -1]], np.int32)
+    want = np.asarray(jpaged(jnp.asarray(q), kq, vq, jnp.asarray(bt),
+                             jnp.asarray(pos), ks, vs, impl="interpret"))
+    args = (torch.from_numpy(q), _t(kq), _t(vq), torch.from_numpy(bt),
+            torch.from_numpy(pos), _t(ks), _t(vs))
+    got = chip_smoke.split_combine(*args, split_keys=64).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+    np.testing.assert_array_equal(got[1, 2], 0.0)
+    for fault in ("one split dropped", "combine rescale dropped"):
+        bad = chip_smoke.split_combine(*args, split_keys=64,
+                                       fault=fault).numpy()
+        assert np.abs(bad - want).max() > 100 * TOL, fault
+    # a split dropped leaves sequence 1's rows no key: zeros
+    bad = chip_smoke.split_combine(*args, split_keys=64,
+                                   fault="one split dropped").numpy()
+    np.testing.assert_array_equal(bad[1], 0.0)
