@@ -8,11 +8,12 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. card: name and power limit (nvidia-smi); build every kernel from the
    sources in this checkout (one nvcc per CUDA source, all at once; the
-   Triton rmsnorm kernels compile at their first call); print each
+   Triton rmsnorm forward compiles at its first call); print each
    kernel's ptxas registers and spills, and the count of HGMMA (wgmma)
    instructions in the SASS of the flash forward, flash backward and
    paged libraries, which must not be 0 (nor may a freshly built one
-   spill).
+   spill, nor the fused rmsnorm backward at one slice a thread, the
+   instantiations of every width up to 4096 in bf16).
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card, at the shapes phi4-mini-3.8b's serving and training
    paths give it, with its time, the plain version's time, one PyTorch
@@ -20,8 +21,10 @@ Phases (any failure exits non-zero and prints no result line):
    never calls) and the least time the card could take (bytes over
    3.35 TB/s or operations over the peak rate, whichever is larger).
    Each case also holds the kernel's output against plain versions with
-   a planted fault (the rmsnorm weight ignored, its projection term or
-   last row block dropped; a key tile dropped, a row's own key masked,
+   a planted fault (the rmsnorm weight ignored; the fused rmsnorm
+   backward's projection term or last row block dropped, dx's dot from
+   the previous row of its block's ring, one block's dw partial left out
+   of the fixed-order sum; a key tile dropped, a row's own key masked,
    the flash forward's middle key tile skipped or its rescale of O
    dropped, fp8 / int8 scales ignored, delta dropped, the GQA sum over
    one head, one stage of the dK/dV kernel's ring or one of the dQ
@@ -36,7 +39,10 @@ Phases (any failure exits non-zero and prints no result line):
    repeat bitwise and write exact zeros for padding rows, its faults
    include "one split dropped" and "combine rescale dropped", and it is
    timed warm (``ms``) and cold (``ms_cold``, each call on its own copy
-   of the pools, > 64 MB of K/V between two uses).  The backward
+   of the pools, > 64 MB of K/V between two uses).  The fused rmsnorm
+   backward (dx and dw in one launch) runs at phi4's and zamba2's
+   training shapes and a decode-sized one, repeats bitwise and is timed
+   warm and cold beside autograd of ``F.rms_norm``.  The backward
    cases also hold the forward kernels' residuals (rstd, lse) against the
    plain forward's, and the chain forward kernel -> backward kernels
    against plain forward -> plain backward; the flash backward kernels
@@ -127,6 +133,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import traceback
@@ -175,9 +182,8 @@ E2E_REL_TOL = 1.5e-2
 TRAIN_LOSS_REL_TOL = 1e-3
 TRAIN_GRAD_REL_TOL = 3e-2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 8
-TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd_dx", "rmsnorm_bwd_dw",
-                 "flash_attention", "flash_attention_bwd_dkv",
-                 "flash_attention_bwd_dq")
+TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                 "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 # rows per tile: TILE of the paged kernel's streamed K / V tiles
 # (paged_chunk_attention.cu), of the flash forward's key tiles
 # (flash_attention_fwd.cu) and of the flash backward's streamed tiles
@@ -233,10 +239,9 @@ KERNEL_META = {
         "cuda", "src/repro_torch/kernels/paged_chunk_attention/csrc/"
         "paged_chunk_attention.cu",
         "src/repro/kernels/paged_chunk_attention/kernel.py:105"),
-    "rmsnorm_bwd_dx": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
-                       "src/repro/kernels/rmsnorm/kernel.py:76"),
-    "rmsnorm_bwd_dw": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
-                       "src/repro/kernels/rmsnorm/kernel.py:103"),
+    "rmsnorm_bwd": ("cuda",
+                    "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
+                    "src/repro/kernels/rmsnorm/kernel.py:76"),
     "flash_attention_bwd_dkv": (
         "cuda", "src/repro_torch/kernels/flash_attention/csrc/"
         "flash_attention_bwd.cu",
@@ -263,6 +268,8 @@ KERNEL_META = {
                    "src/repro_torch/kernels/quant_comm/csrc/quant_comm.cu",
                    "src/repro/kernels/quant_comm/kernel.py:55"),
 }
+# one hand-written kernel in place of two TPU kernels: the other one
+ALSO_REPLACES = {"rmsnorm_bwd": "src/repro/kernels/rmsnorm/kernel.py:103"}
 DENSE_SERVING_KERNELS = ("rmsnorm", "flash_attention",
                          "paged_chunk_attention")
 SERVING_KERNELS = DENSE_SERVING_KERNELS + ("topk_gating",)
@@ -725,8 +732,9 @@ def check_paged(dev, *, kv_dtype, T, bs, b=8, h=24, kvh=8, d=128,
     import torch.nn.functional as F
     from repro_torch.kernels.paged_chunk_attention import (
         paged_chunk_attention, paged_chunk_attention_ref)
+    from repro_torch.kernels.build import sm_count
     from repro_torch.kernels.paged_chunk_attention.kernel import (
-        _sms, paged_chunk_attention_fwd, split_plan)
+        paged_chunk_attention_fwd, split_plan)
     from repro_torch.models.attention import KV_DTYPES, bits, quantize_kv
     rng = np.random.default_rng(seed)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -778,7 +786,8 @@ def check_paged(dev, *, kv_dtype, T, bs, b=8, h=24, kvh=8, d=128,
         faulty["scales ignored"] = paged_chunk_attention_ref(q, kp, vp, bt,
                                                              ps)
     S = tables.shape[1] * bs
-    n_split, split_keys = split_plan(S, bs, b, kvh, T * (h // kvh), _sms(dev))
+    n_split, split_keys = split_plan(S, bs, b, kvh, T * (h // kvh),
+                                     sm_count(dev))
     if n_split > 1:
         for fault in ("one split dropped", "combine rescale dropped"):
             faulty[fault] = split_combine(*args, split_keys=split_keys,
@@ -842,28 +851,97 @@ def check_paged(dev, *, kv_dtype, T, bs, b=8, h=24, kvh=8, d=128,
     return res
 
 
+# the fused rmsnorm backward's dw combine (rmsnorm_bwd.cu): lane k of
+# COMBINE_LANES adds the partials k, k + COMBINE_LANES, ... in block
+# order, then the lanes are added in order
+COMBINE_LANES = 32
+# the training path's planted fault "dw without its last row block":
+# the last 64 rows of each rmsnorm backward call left out of dw
+DW_FAULT_ROWS = 64
+DX_RING_FAULT = "dx's dot taken from the previous row of the block's ring"
+DW_PART_FAULT = "one block's dw partial left out of the fixed-order sum"
+
+
+def dx_ring(x, w, dy, rstd, rows, fault=None):
+    """dx (n, d) fp32 as the fused rmsnorm backward computes it, row by
+    row in the plan's blocks (``rows``: (start, stop) per block): with
+    g = dy * w, r * g - x * r^3 * sum(g * x) / d.  Fault DX_RING_FAULT:
+    each row takes the dot of the row before it in its block, and a
+    block's first row 0 (its ring slot has no predecessor)."""
+    import torch
+    xf, r = x.float(), rstd[:, None]
+    g = dy.float() * w.float()
+    dot = (g * xf).sum(dim=-1)
+    if fault == DX_RING_FAULT:
+        prev = torch.zeros_like(dot)
+        for lo, hi in rows:
+            prev[lo + 1:hi] = dot[lo:hi - 1]
+        dot = prev
+    elif fault is not None:
+        raise ValueError(fault)
+    return r * g - xf * (r * r * r) * (dot[:, None] / x.shape[-1])
+
+
+def dw_blocked(x, dy, rstd, rows, fault=None):
+    """dw (d,) fp32 as the fused rmsnorm backward adds it: one fp32
+    partial of dy * x * r per plan block (``rows``), the partials added
+    in the combine's fixed order (COMBINE_LANES).  Fault DW_PART_FAULT:
+    the middle block's partial left out."""
+    import torch
+    t = dy.float() * x.float() * rstd[:, None]
+    parts = [t[lo:hi].sum(dim=0) for lo, hi in rows]
+    if fault == DW_PART_FAULT:
+        parts[len(parts) // 2] = torch.zeros_like(parts[0])
+    elif fault is not None:
+        raise ValueError(fault)
+    dw = torch.zeros(x.shape[-1], dtype=torch.float32, device=x.device)
+    for k in range(COMBINE_LANES):
+        lane = torch.zeros_like(dw)
+        for p in parts[k::COMBINE_LANES]:
+            lane = lane + p
+        dw = dw + lane
+    return dw
+
+
+def both(dx_rec, dw_rec):
+    """One record for the fused backward's two outputs: the larger error
+    and tolerance share, ok if both are, every planted fault of each."""
+    return {"max_abs_err": max(dx_rec["max_abs_err"], dw_rec["max_abs_err"]),
+            "tol_used": max(dx_rec["tol_used"], dw_rec["tol_used"]),
+            "ok": dx_rec["ok"] and dw_rec["ok"],
+            "controls": dx_rec["controls"] + dw_rec["controls"]}
+
+
 def check_rmsnorm_bwd(dev, n, d):
-    """dx and dw kernels against their plain functions on the same x, w,
-    dy and rstd.  Faults: dx without its projection term, dw without
-    its last block of rows.  Then the training path's hand-off: the
-    forward kernel's y and rstd against the plain forward's (fault: the
-    mean over all columns but the last), and the chain forward kernel
-    -> dx / dw kernels from its own rstd against plain forward -> plain
-    backward."""
+    """The fused backward kernel (dx and dw in one launch) against the
+    plain functions on the same x, w, dy and rstd: dx within
+    TOL["rmsnorm_bwd_dx"], dw within TOL["rmsnorm_bwd_dw"], two launches
+    bitwise equal.  Faults: dx without its projection term, dx's dot
+    from the previous row of the block's ring; dw without its last row
+    block (the plan's last block), one block's dw partial left out of
+    the fixed-order sum.  Then the training path's hand-off: the forward
+    kernel's y and rstd against the plain forward's (fault: the mean
+    over all columns but the last), and the chain forward kernel ->
+    fused backward from its own rstd against plain forward -> plain
+    backward.  Timed warm (``ms``) and cold (``ms_cold``: each call on
+    its own copy of x, dy and rstd, > 64 MB of them between two uses)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_dw_ref,
                                              rmsnorm_bwd_dx_ref,
                                              rmsnorm_fwd_ref)
-    from repro_torch.kernels.rmsnorm.kernel import (DW_ROWS, rmsnorm_bwd_dw,
-                                                    rmsnorm_bwd_dx,
+    from repro_torch.kernels.build import sm_count
+    from repro_torch.kernels.rmsnorm.kernel import (bwd_plan, rmsnorm_bwd,
                                                     rmsnorm_fwd)
     g = torch.Generator(device=dev).manual_seed(4)
     x = torch.randn(n, d, device=dev, generator=g).bfloat16()
     w = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).bfloat16()
     dy = torch.randn(n, d, device=dev, generator=g).bfloat16()
+    plan = bwd_plan(n, d, x.element_size(), sm_count(dev))
     y, rstd = rmsnorm_fwd_ref(x, w)
-    dx, dw = rmsnorm_bwd_dx(x, w, dy, rstd), rmsnorm_bwd_dw(x, dy, rstd)
+    dx, dw = rmsnorm_bwd(x, w, dy, rstd)
+    dx2, dw2 = rmsnorm_bwd(x, w, dy, rstd)
+    bitwise = bool(torch.equal(dx, dx2) and torch.equal(dw, dw2))
     dx_ref = rmsnorm_bwd_dx_ref(x, w, dy, rstd)
     dw_ref = rmsnorm_bwd_dw_ref(x, dy, rstd)
     yk, rstd_k = rmsnorm_fwd(x, w, save_rstd=True)
@@ -871,44 +949,48 @@ def check_rmsnorm_bwd(dev, n, d):
         "last column dropped": torch.rsqrt(
             x[:, :-1].float().square().mean(-1) + 1e-6)}),
         "y": checked("rmsnorm", yk, y)}
-    chained = {"rmsnorm_bwd_dx": checked("rmsnorm_bwd_dx",
-                                         rmsnorm_bwd_dx(x, w, dy, rstd_k),
-                                         dx_ref),
-               "rmsnorm_bwd_dw": checked("rmsnorm_bwd_dw",
-                                         rmsnorm_bwd_dw(x, dy, rstd_k),
-                                         dw_ref)}
-    keep = max(n - DW_ROWS, 0)
-    ctl = {"rmsnorm_bwd_dx": controls("rmsnorm_bwd_dx", dx, {
-        "projection term dropped": dy.float() * w.float() * rstd[:, None]}),
-        "rmsnorm_bwd_dw": controls("rmsnorm_bwd_dw", dw, {
+    cdx, cdw = rmsnorm_bwd(x, w, dy, rstd_k)
+    chained = {"dx": checked("rmsnorm_bwd_dx", cdx, dx_ref),
+               "dw": checked("rmsnorm_bwd_dw", cdw, dw_ref)}
+    keep = plan.rows[-1][0]
+    outputs = {
+        "dx": checked("rmsnorm_bwd_dx", dx, dx_ref, {
+            "projection term dropped": dy.float() * w.float() * rstd[:, None],
+            DX_RING_FAULT: dx_ring(x, w, dy, rstd, plan.rows, DX_RING_FAULT)}),
+        "dw": checked("rmsnorm_bwd_dw", dw, dw_ref, {
             "last row block dropped": rmsnorm_bwd_dw_ref(
-                x[:keep], dy[:keep], rstd[:keep])})}
+                x[:keep], dy[:keep], rstd[:keep]),
+            DW_PART_FAULT: dw_blocked(x, dy, rstd, plan.rows, DW_PART_FAULT)})}
+    row = both(outputs["dx"], outputs["dw"])
+    # cold: copies of x, dy and rstd, > COLD_BYTES of them between two uses
+    copies = [(x.clone(), dy.clone(), rstd.clone()) for _ in range(
+        min(1024, COLD_BYTES // (2 * n * d * x.element_size()) + 2))]
+    ms_cold = cold_ms([lambda c=c: rmsnorm_bwd(c[0], w, c[1], c[2])
+                       for c in copies])
+    del copies
     # library yardstick: autograd of F.rms_norm, dx and dw in one call
     xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
     lib_ms = backward_ms(lambda: F.rms_norm(xl, (d,), wl, 1e-6), (xl, wl),
                          dy)
-    plain_ms = time_ms(lambda: (rmsnorm_bwd_dx_ref(x, w, dy, rstd),
-                                rmsnorm_bwd_dw_ref(x, dy, rstd)))
-    rows = {}
-    for name, got, ref, fn, nbytes, ops in (
-            ("rmsnorm_bwd_dx", dx, dx_ref,
-             lambda: rmsnorm_bwd_dx(x, w, dy, rstd),
-             3 * n * d * 2 + d * 2 + n * 4, 8 * n * d),
-            ("rmsnorm_bwd_dw", dw, dw_ref,
-             lambda: rmsnorm_bwd_dw(x, dy, rstd),
-             2 * n * d * 2 + n * 4 + d * 4, 3 * n * d)):
-        err, used, ok = compare(name, got, ref)
-        b_ms, b_by = bound(nbytes, ops, "fp32")
-        rows[name] = {"case": f"n={n},d={d},bf16", "max_abs_err": err,
-                      "tol_used": used, "ok": ok, "controls": ctl[name],
-                      "residual": residual, "chained": chained[name],
-                      "ms": time_ms(fn), "host_ms": host_ms(fn),
-                      "plain_ms": plain_ms,
-                      "plain_covers": "dx and dw together",
-                      "library_ms": lib_ms,
-                      "library_covers": "dx and dw together",
-                      "bound_ms": b_ms, "bound_by": b_by}
-    return rows
+    fn = lambda: rmsnorm_bwd(x, w, dy, rstd)         # noqa: E731
+    ms = time_ms(fn)
+    # the pair's bytes: x, dy read and dx written once, w, rstd and dw
+    b_ms, b_by = bound(3 * n * d * 2 + d * 2 + n * 4 + d * 4, 11 * n * d,
+                       "fp32")
+    return {"rmsnorm_bwd": {
+        "case": f"n={n},d={d},bf16", **row,
+        "ok": row["ok"] and bitwise, "bitwise_repeat": bitwise,
+        "outputs": outputs, "residual": residual, "chained": both(
+            chained["dx"], chained["dw"]),
+        "plan": {"blocks": plan.blocks, "threads": plan.threads,
+                 "stages": plan.stages, "slices": plan.slices},
+        "ms": ms, "ms_cold": ms_cold, "host_ms": host_ms(fn),
+        "plain_ms": time_ms(lambda: (rmsnorm_bwd_dx_ref(x, w, dy, rstd),
+                                     rmsnorm_bwd_dw_ref(x, dy, rstd))),
+        "plain_covers": "dx and dw together",
+        "library_ms": lib_ms,
+        "library_covers": "dx and dw together (autograd of F.rms_norm)",
+        "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}}
 
 
 def causal_pairs(sq, skv, q_offset, kv_len, causal=True):
@@ -1104,7 +1186,7 @@ def check_flash_bwd(dev, *, b, sq, skv, h=24, kvh=8, d=128, q_offset=None,
 
 
 def backward_kernel_phase(dev):
-    """The four backward kernels, each against its plain function: the
+    """The three backward kernels, each against its plain functions: the
     training step's shapes first (rmsnorm 4096 x 3072, flash b 2 x 2048
     causal), then a decode-sized rmsnorm and ragged flash cases, then
     zamba2-1.2b's training shapes (rmsnorm over d_inner 4096 and d 2048,
@@ -1112,8 +1194,7 @@ def backward_kernel_phase(dev):
     edges: lengths that are not multiples of their 64 / 128-row tiles
     (129, 200, 1000), GQA groups of 1, 3 and 4, head dims 64 and 128,
     q_offset > 0 and kv_len < skv with whole key tiles past kv_len."""
-    cases = {n: [] for n in ("rmsnorm_bwd_dx", "rmsnorm_bwd_dw",
-                             "flash_attention_bwd_dkv",
+    cases = {n: [] for n in ("rmsnorm_bwd", "flash_attention_bwd_dkv",
                              "flash_attention_bwd_dq")}
     for n, d in ((4096, 3072), (8, 3072), (4096, 4096), (4096, 2048)):
         for name, row in check_rmsnorm_bwd(dev, n, d).items():
@@ -1709,7 +1790,9 @@ def teacher_forced(model, params, prompts, forced, dev, n_ticks=4, bs=16,
 def profiled(run, top=12):
     """``run()`` once more under torch.profiler: the device's busy share
     of the traced wall time, the device operations by time, and the
-    device time of the port's attention kernels."""
+    device time of the port's attention kernels and of its rmsnorm
+    backward (the row kernel and its dw combine; the combine, launched
+    early as a programmatic dependent, also counts the time it waits)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1739,12 +1822,18 @@ def profiled(run, top=12):
     # split and combine)
     attn = [e for e in rows if "flash_" in e.key or "paged_" in e.key]
     attn_ms = sum(dev_us(e) for e in attn) / 1e3
+    norm = [e for e in rows if "rmsnorm_bwd_kernel" in e.key
+            or "rmsnorm_dw_combine" in e.key]
+    norm_ms = sum(dev_us(e) for e in norm) / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "top": [op(e) for e in rows[:top]],
             "attention": {"device_ms": attn_ms,
                           "share_of_busy": attn_ms / busy_ms,
-                          "ops": [op(e) for e in attn]}}
+                          "ops": [op(e) for e in attn]},
+            "rmsnorm_bwd": {"device_ms": norm_ms,
+                            "share_of_busy": norm_ms / busy_ms,
+                            "ops": [op(e) for e in norm]}}
 
 
 def e2e_phase(dev):
@@ -1803,10 +1892,9 @@ def train_faults():
     import torch
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.rmsnorm import ops as rops
-    from repro_torch.kernels.rmsnorm.kernel import DW_ROWS
     fwd, dkv, dq = (fops.flash_attention_fwd, fops.flash_attention_bwd_dkv,
                     fops.flash_attention_bwd_dq)
-    dx, dw = rops.rmsnorm_bwd_dx, rops.rmsnorm_bwd_dw
+    bwd = rops.rmsnorm_bwd
 
     def short(k, kw):                       # one key tile fewer
         kv = k.shape[2] if kw.get("kv_len") is None else kw["kv_len"]
@@ -1849,10 +1937,8 @@ def train_faults():
              lambda q, k, v, do, lse, delta, **kw: dq(
                  q, *rolled(k, v), do, lse, delta, **kw))]),
         "rmsnorm backward fed rstd = 1": (True, [
-            (rops, "rmsnorm_bwd_dx",
-             lambda x, w, dy, rstd: dx(x, w, dy, torch.ones_like(rstd))),
-            (rops, "rmsnorm_bwd_dw",
-             lambda x, dy, rstd: dw(x, dy, torch.ones_like(rstd)))]),
+            (rops, "rmsnorm_bwd",
+             lambda x, w, dy, rstd: bwd(x, w, dy, torch.ones_like(rstd)))]),
         "flash forward without the last key tile": (False, [
             (fops, "flash_attention_fwd",
              lambda q, k, v, **kw: fwd(q, k, v, **short(k, kw)))]),
@@ -1861,9 +1947,11 @@ def train_faults():
              lambda q, k, v, do, lse, delta, **kw: dq(
                  q, k, v, do, lse, delta, **short(k, kw)))]),
         "dw without its last row block": (False, [
-            (rops, "rmsnorm_bwd_dw",
-             lambda x, dy, rstd: dw(x[:-DW_ROWS], dy[:-DW_ROWS],
-                                    rstd[:-DW_ROWS]))])}
+            (rops, "rmsnorm_bwd",
+             lambda x, w, dy, rstd: (
+                 bwd(x, w, dy, rstd)[0],
+                 bwd(x[:-DW_FAULT_ROWS], w, dy[:-DW_FAULT_ROWS],
+                     rstd[:-DW_FAULT_ROWS])[1]))])}
 
 
 def rel_by_leaf(got, ref, name=""):
@@ -3264,6 +3352,17 @@ def main():
     for name, log in build.build_logs.items():
         for fn, line in ptxas_lines(log):
             print(f"ptxas {name} {fn}: {line}", flush=True)
+    # the fused rmsnorm backward: no spill at one slice a thread
+    if "rmsnorm_bwd" in build.build_logs:
+        lines = ptxas_lines(build.build_logs["rmsnorm_bwd"])
+        spilled = spills(build.build_logs["rmsnorm_bwd"])
+        print(json.dumps({"ptxas": "rmsnorm_bwd", "lines": lines,
+                          "spills": spilled}), flush=True)
+        failures += [f"rmsnorm_bwd {fn}: ptxas spills: {line}"
+                     for fn, line in spilled if re.search(r"<[^,<>]+, 1,", fn)]
+    else:
+        print("ptxas rmsnorm_bwd: library from the build cache, its ptxas "
+              "lines (spills) not read in this run", flush=True)
     # the wgmma kernels: no spill in a fresh build, HGMMA in the SASS
     for lib in ("flash_attention", "flash_attention_bwd",
                 "paged_chunk_attention"):
@@ -3379,7 +3478,10 @@ def main():
                     run["launches"][name] / DDP_STEPS
         summary.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "case": r["case"],
+            "replaces": replaces,
+            **({"also_replaces": ALSO_REPLACES[name]}
+               if name in ALSO_REPLACES else {}),
+            "case": r["case"],
             "launches": sum(runs.values()), "launches_per_run": runs,
             "launches_per_step": per_step,
             "max_abs_err": r["max_abs_err"], "tol_used": r["tol_used"],

@@ -12,8 +12,7 @@ from repro_torch.kernels import flash_attention, paged_chunk_attention, \
 
 KERNELS = {
     "rmsnorm": rmsnorm.LAUNCHES,
-    "rmsnorm_bwd_dx": rmsnorm.LAUNCHES_BWD_DX,
-    "rmsnorm_bwd_dw": rmsnorm.LAUNCHES_BWD_DW,
+    "rmsnorm_bwd": rmsnorm.LAUNCHES_BWD,
     "flash_attention": flash_attention.LAUNCHES,
     "flash_attention_bwd_dkv": flash_attention.LAUNCHES_BWD_DKV,
     "flash_attention_bwd_dq": flash_attention.LAUNCHES_BWD_DQ,

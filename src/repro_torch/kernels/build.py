@@ -35,6 +35,7 @@ SOURCES = {
     "topk_gating": "topk_gating/csrc/topk_gating.cu",
     "ssd_scan": "ssd_scan/csrc/ssd_scan.cu",
     "quant_comm": "quant_comm/csrc/quant_comm.cu",
+    "rmsnorm_bwd": "rmsnorm/csrc/rmsnorm_bwd.cu",
 }
 _INCLUDE = _KERNELS / "csrc"
 
@@ -44,6 +45,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict = {}
 build_logs: dict = {}       # kernel name -> nvcc's output (ptxas -v)
+_sms: dict = {}             # device index -> SM count
 
 
 def nvcc() -> str:
@@ -105,6 +107,15 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
     return lib
+
+
+def sm_count(device) -> int:
+    """The number of SMs of CUDA ``device`` (read once per device)."""
+    if device.index not in _sms:
+        import torch
+        _sms[device.index] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return _sms[device.index]
 
 
 def check(err: int, what: str) -> None:

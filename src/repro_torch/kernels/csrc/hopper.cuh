@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the attention kernels (the flash
-// forward and backward, paged chunk attention): TMA tensor maps and
-// loads, mbarriers, named barriers,
+// forward and backward, paged chunk attention) and the rmsnorm backward:
+// TMA tensor maps and loads, 1-D bulk copies, mbarriers, named barriers,
 // register reallocation between warpgroups, and warpgroup matrix
 // multiplies (wgmma) with shared-memory descriptors and register A
 // operands.
@@ -152,6 +152,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// 1-D bulk copy of `bytes` contiguous bytes from global memory into
+// shared memory, completing on `bar` (no tensor map).  `bytes`, `dst`
+// and `src` must be multiples of 16.
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -33,7 +33,6 @@ SPLIT_BLOCKS_PER_SM_WIDE = 1
 MIN_SPLIT_TILES = 2      # key tiles a split takes at least
 MAX_PAGES = 512          # page-table entries a split may span (the kernel's)
 _FN: dict = {}
-_SMS: dict = {}
 
 
 def split_plan(cap, bs, b, kvh, rows, sms):
@@ -57,13 +56,6 @@ def split_plan(cap, bs, b, kvh, rows, sms):
     per = -(-tiles // n)
     per = min(per, max(1, (MAX_PAGES - 2) * bs // KEY_TILE))
     return -(-tiles // per), per * KEY_TILE
-
-
-def _sms(dev):
-    if dev.index not in _SMS:
-        _SMS[dev.index] = \
-            torch.cuda.get_device_properties(dev).multi_processor_count
-    return _SMS[dev.index]
 
 
 def _fn():
@@ -112,7 +104,7 @@ def paged_chunk_attention_fwd(q, k_pool, v_pool, block_tables, positions,
     o = torch.empty((b, T, h, d), dtype=q.dtype, device=dev)
     rows = T * (h // kvh)
     n_split, split_keys = split_plan(tables.shape[1] * bs, bs, b, kvh, rows,
-                                     _sms(dev))
+                                     build.sm_count(dev))
     part = None
     if n_split > 1:     # each split's O (fp32) and (m, l) for the combine
         part = torch.empty(n_split * b * kvh * rows * (d + 2),

@@ -1,41 +1,51 @@
-"""RMSNorm forward and backward as Triton kernels for Hopper.
+"""RMSNorm on Hopper: the forward as a Triton kernel, the backward (dx
+and dw together) as one CUDA C++ kernel.
 
 Replaces the TPU kernels of ``src/repro/kernels/rmsnorm/kernel.py``:
 
 - ``rmsnorm_fwd`` (``_rmsnorm_kernel`` / ``_rmsnorm_res_kernel``): per
   row, y = x * rsqrt(mean(x^2) + eps) * w in fp32, cast to x's dtype;
   optionally the row's rstd (n,) fp32, the residual the backward needs.
-- ``rmsnorm_bwd_dx`` (``_rmsnorm_bwd_dx_kernel``): with g = dy * w,
-  dx = r * g - x * r^3 * sum(g * x) / d.
-- ``rmsnorm_bwd_dw`` (``_rmsnorm_bwd_dw_kernel``): per row block the
-  partial sums of dy * x * r, then one ``torch.sum`` over the blocks, as
-  the JAX wrapper sums in jnp: two passes and no atomics, so dw is
-  deterministic.
-
-What bounds them on the H100: each reads its (n, d) inputs once and
-writes its output once, against about 3-5 FLOPs per element and no
-tensor-core work — device-memory bandwidth.  The forward and dx run one
-program per row, the row held whole in registers (d = 3072 fits one
-4096-wide block), so every byte moves once.  dw runs one program per
-(64-row block, 256-column slice), 16 rows at a time, so a 4096-row step
-has hundreds of programs in flight.
-
-Triton is imported when a kernel is first built, inside the launching
-function: machines without it (the CPU test runs) can import this
-module.
+  One Triton program a row, the row whole in registers (d = 3072 fits
+  one 4096-wide block): it reads x once and writes y once, bound by
+  device-memory bandwidth.  Triton is imported when the kernel is first
+  built, inside the launching function, so machines without it (the CPU
+  test runs) can import this module.
+- ``rmsnorm_bwd_dx`` and ``rmsnorm_bwd_dw`` (``_rmsnorm_bwd_dx_kernel``,
+  ``_rmsnorm_bwd_dw_kernel``): ``rmsnorm_bwd`` binds
+  ``csrc/rmsnorm_bwd.cu`` (its header says how it works and what bounds
+  it), which computes dx = r * g - x * r^3 * sum(g * x) / d with
+  g = dy * w, and dw = sum over rows of dy * x * r in fp32, in one pass
+  over x and dy and a fixed-order sum of its blocks' dw partials: dx and
+  dw are bitwise the same from run to run.  ``bwd_plan`` (pure Python)
+  is its grid: blocks, threads, ring stages and each block's rows.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.telemetry import get_registry
 
 LAUNCHES = get_registry().counter("kernel.rmsnorm.launches")
-LAUNCHES_BWD_DX = get_registry().counter("kernel.rmsnorm_bwd_dx.launches")
-LAUNCHES_BWD_DW = get_registry().counter("kernel.rmsnorm_bwd_dw.launches")
-DW_ROWS = 64        # rows per dw partial (the partial count divisor)
-DW_COLS = 256       # columns per dw program
-DW_CHUNK = 16       # rows a dw program loads at once
+LAUNCHES_BWD = get_registry().counter("kernel.rmsnorm_bwd.launches")
+# the backward's plan: a thread owns up to MAX_SLICES 16-byte column
+# slices of a row, a block up to MAX_THREADS threads.  BLOCKS_PER_SM
+# blocks an SM where a thread owns one slice, a block has at most
+# PAIR_THREADS threads and both rings fit the SM, else one.  A ring
+# stage is one (x row, dy row) pair; an SM's rings hold about
+# RING_BYTES_PER_SM (2 to MAX_STAGES stages a block)
+MAX_THREADS, MAX_SLICES = 512, 4
+BLOCKS_PER_SM, PAIR_THREADS = 2, 384
+MAX_STAGES, RING_BYTES_PER_SM = 4, 48 * 1024
+SM_SHARED_BYTES = 227 * 1024
+H100_SMS = 132
+_KINDS = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_FN: dict = {}
 _JIT: dict = {}
 tl = None   # triton.language, bound by _build()
 
@@ -65,46 +75,7 @@ def _build():
         if SAVE_RSTD:
             tl.store(r_ptr + row, r)
 
-    @triton.jit
-    def _rmsnorm_bwd_dx(x_ptr, w_ptr, dy_ptr, r_ptr, dx_ptr, stride_x,
-                        stride_dy, stride_dx, n_cols, BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        cols = tl.arange(0, BLOCK)
-        mask = cols < n_cols
-        x = tl.load(x_ptr + row * stride_x + cols, mask=mask,
-                    other=0.0).to(tl.float32)
-        dy = tl.load(dy_ptr + row * stride_dy + cols, mask=mask,
-                     other=0.0).to(tl.float32)
-        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-        r = tl.load(r_ptr + row)
-        g = dy * w
-        dot = tl.sum(g * x, axis=0)
-        dx = r * g - x * (r * r * r) * (dot / n_cols)
-        tl.store(dx_ptr + row * stride_dx + cols,
-                 dx.to(dx_ptr.dtype.element_ty), mask=mask)
-
-    @triton.jit
-    def _rmsnorm_bwd_dw(x_ptr, dy_ptr, r_ptr, part_ptr, stride_x, stride_dy,
-                        n_rows, n_cols, ROWS: tl.constexpr,
-                        COLS: tl.constexpr, CHUNK: tl.constexpr):
-        blk = tl.program_id(0)
-        cols = tl.program_id(1) * COLS + tl.arange(0, COLS)
-        cmask = cols < n_cols
-        acc = tl.zeros((COLS,), dtype=tl.float32)
-        for i in range(0, ROWS, CHUNK):
-            rows = blk * ROWS + i + tl.arange(0, CHUNK)
-            rmask = rows < n_rows
-            m2 = rmask[:, None] & cmask[None, :]
-            x = tl.load(x_ptr + rows[:, None] * stride_x + cols[None, :],
-                        mask=m2, other=0.0).to(tl.float32)
-            dy = tl.load(dy_ptr + rows[:, None] * stride_dy + cols[None, :],
-                         mask=m2, other=0.0).to(tl.float32)
-            r = tl.load(r_ptr + rows, mask=rmask, other=0.0)
-            acc += tl.sum(dy * x * r[:, None], axis=0)
-        tl.store(part_ptr + blk * n_cols + cols, acc, mask=cmask)
-
-    _JIT.update(fwd=_rmsnorm_fwd, dx=_rmsnorm_bwd_dx, dw=_rmsnorm_bwd_dw,
-                next_pow2=triton.next_power_of_2)
+    _JIT.update(fwd=_rmsnorm_fwd, next_pow2=triton.next_power_of_2)
     return _JIT
 
 
@@ -152,40 +123,90 @@ def rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     return (y, rstd) if save_rstd else y
 
 
-def rmsnorm_bwd_dx(x, w, dy, rstd):
-    """dL/dx (n, d) in x.dtype for y = x * rstd * w; x, dy (n, d) with
-    unit stride along d, w (d,), rstd (n,) fp32."""
+class BwdPlan(NamedTuple):
+    """The backward kernel's grid for (n, d): ``blocks`` persistent
+    blocks of ``threads`` threads, each thread ``slices`` 16-byte column
+    slices of a row, a ring of ``stages`` (x row, dy row) stages, and
+    block b's rows ``rows[b]`` = (start, stop), contiguous, in order."""
+    blocks: int
+    threads: int
+    stages: int
+    slices: int
+    rows: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(n, d, elem_bytes=2, sms=H100_SMS):
+    """The grid of ``rmsnorm_bwd`` for n rows of d elements of
+    ``elem_bytes`` each, from shapes and the SM count alone (never from
+    the data, so a launch can be captured in a CUDA graph).  Blocks:
+    BLOCKS_PER_SM an SM where a thread owns one slice, a block has at
+    most PAIR_THREADS threads and both rings fit an SM, else one; never
+    more than n (n = 0: none).  Block b takes n // blocks rows, the
+    first n % blocks blocks one more.  Cached: a training step asks for
+    the same few shapes on every call."""
+    vec = 16 // elem_bytes
+    vecs = -(-d // vec)
+    slices = next((s for s in (1, 2, MAX_SLICES)
+                   if -(-vecs // s) <= MAX_THREADS), None)
+    if d < 1 or slices is None:
+        raise ValueError(f"rmsnorm backward: d = {d} not taken (at most "
+                         f"{MAX_SLICES * MAX_THREADS * vec} of "
+                         f"{elem_bytes}-byte elements)")
+    threads = 32 * -(-vecs // (32 * slices))
+    stage = 2 * d * elem_bytes
+    head = 64 + (2 * MAX_THREADS // 32 + 2 * threads) * 4 + 128
+    pair = BLOCKS_PER_SM * (head + 2 * stage) <= SM_SHARED_BYTES
+    per_sm = (BLOCKS_PER_SM if slices == 1 and threads <= PAIR_THREADS
+              and pair else 1)
+    stages = max(2, min(MAX_STAGES, RING_BYTES_PER_SM // (per_sm * stage)))
+    blocks = min(n, per_sm * sms)
+    q, rem = divmod(n, blocks) if blocks else (0, 0)
+    starts = [b * q + min(b, rem) for b in range(blocks + 1)]
+    return BwdPlan(blocks, threads, stages, slices,
+                   tuple(zip(starts[:-1], starts[1:])))
+
+
+def _fn():
+    if "bwd" not in _FN:
+        fn = build.load("rmsnorm_bwd").rmsnorm_bwd
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # x w dy rstd dx part dw, n d sx sdy x_kind w_kind, blocks threads
+        # stages slices, stream
+        fn.argtypes = [P, P, P, P, P, P, P, I, I, L, L, I, I, I, I, I, I, P]
+        fn.restype = I
+        _FN["bwd"] = fn
+    return _FN["bwd"]
+
+
+def rmsnorm_bwd(x, w, dy, rstd):
+    """(dL/dx (n, d) in x.dtype, dL/dw (d,) fp32) for y = x * rstd * w:
+    x, dy (n, d) of one dtype (bf16, fp16 or fp32) with unit stride along
+    d, w (d,) of any of those, rstd (n,) fp32.  One launch of the fused
+    kernel and its dw combine; n = 0 launches nothing (dw = 0)."""
     _check_rows("x", x, x.device)
     n, d = x.shape
     _check_rows("dy", dy, x.device, n, d)
     _check_vec("w", w, x.device, d)
     _check_vec("rstd", rstd, x.device, n, torch.float32)
-    k = _build()
+    if x.dtype not in _KINDS or dy.dtype != x.dtype or w.dtype not in _KINDS:
+        raise ValueError(f"rmsnorm backward takes x and dy of one dtype "
+                         f"and w, each bf16, fp16 or fp32; got x {x.dtype}, "
+                         f"dy {dy.dtype}, w {w.dtype}")
+    plan = bwd_plan(n, d, x.element_size(), build.sm_count(x.device))
     dx = torch.empty((n, d), dtype=x.dtype, device=x.device)
-    if n:
-        block = k["next_pow2"](d)
-        with torch.cuda.device(x.device):
-            k["dx"][(n,)](x, w, dy, rstd, dx, x.stride(0), dy.stride(0),
-                          dx.stride(0), d, BLOCK=block,
-                          num_warps=_warps(block))
-        LAUNCHES_BWD_DX.inc()
-    return dx
-
-
-def rmsnorm_bwd_dw(x, dy, rstd):
-    """dL/dw (d,) fp32: the kernel writes one fp32 partial per block of
-    ``DW_ROWS`` rows, and one ``torch.sum`` adds the partials."""
-    _check_rows("x", x, x.device)
-    n, d = x.shape
-    _check_rows("dy", dy, x.device, n, d)
-    _check_vec("rstd", rstd, x.device, n, torch.float32)
-    k = _build()
-    blocks = -(-n // DW_ROWS)
-    part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
-    if n:
-        with torch.cuda.device(x.device):
-            k["dw"][(blocks, -(-d // DW_COLS))](
-                x, dy, rstd, part, x.stride(0), dy.stride(0), n, d,
-                ROWS=DW_ROWS, COLS=DW_COLS, CHUNK=DW_CHUNK, num_warps=4)
-        LAUNCHES_BWD_DW.inc()
-    return part.sum(dim=0)
+    dw = torch.empty((d,), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return dx, dw.zero_()
+    part = torch.empty((plan.blocks, d), dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        err = _fn()(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                    rstd.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                    dw.data_ptr(), n, d, x.stride(0), dy.stride(0),
+                    _KINDS[x.dtype], _KINDS[w.dtype], plan.blocks,
+                    plan.threads, plan.stages, plan.slices,
+                    torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "rmsnorm_bwd")
+    LAUNCHES_BWD.inc()
+    return dx, dw

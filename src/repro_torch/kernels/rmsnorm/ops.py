@@ -7,10 +7,11 @@ impl: "auto" | "ref".
   its forward keeps the per-row rstd and saves (x, w, rstd); its
   backward returns dx in x's dtype and dw in w's dtype.  Without a
   gradient to take (serving) the forward runs alone, y only, with no
-  Function around it.  On CUDA tensors the forward, dx and dw are Triton
-  kernels — a CUDA tensor launches them or raises, never the plain
-  path; on CPU tensors the same code runs the plain forward and the
-  plain backward functions.
+  Function around it.  On CUDA tensors the forward is a Triton kernel
+  and the backward one CUDA kernel for dx and dw together
+  (``kernel.rmsnorm_bwd``) — a CUDA tensor launches them or raises,
+  never the plain path; on CPU tensors the same code runs the plain
+  forward and the plain backward functions.
 - "ref" runs the plain forward on any device and leaves its gradient to
   autograd: the independent plain path the kernels are held against.
 """
@@ -18,8 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_bwd_dw,
-                                                rmsnorm_bwd_dx, rmsnorm_fwd)
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd, rmsnorm_fwd
 from repro_torch.kernels.rmsnorm.ref import (rmsnorm_bwd_dw_ref,
                                              rmsnorm_bwd_dx_ref,
                                              rmsnorm_fwd_ref, rmsnorm_ref)
@@ -43,8 +43,7 @@ class RMSNorm(torch.autograd.Function):
         if dy.stride(-1) != 1:
             dy = dy.contiguous()
         if x.is_cuda:
-            dx = rmsnorm_bwd_dx(x, w, dy, rstd)
-            dw = rmsnorm_bwd_dw(x, dy, rstd)
+            dx, dw = rmsnorm_bwd(x, w, dy, rstd)
         else:
             dx = rmsnorm_bwd_dx_ref(x, w, dy, rstd)
             dw = rmsnorm_bwd_dw_ref(x, dy, rstd)

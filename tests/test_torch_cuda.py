@@ -123,11 +123,12 @@ def test_paged_kernel_matches_plain_on_card(cuda, kv_dtype, d):
 def test_paged_kernel_is_deterministic_on_card(cuda, d):
     """Two launches on the same inputs give the same bits: the key
     splits are merged in a fixed order, with no atomics."""
+    from repro_torch.kernels.build import sm_count
     from repro_torch.kernels.paged_chunk_attention.kernel import (
-        _sms, paged_chunk_attention_fwd, split_plan)
+        paged_chunk_attention_fwd, split_plan)
     b, T, h, kvh, bs, nbmax = 8, 3, 8, 2, 16, 128
     assert split_plan(bs * nbmax, bs, b, kvh, T * h // kvh,
-                      _sms(cuda))[0] > 1
+                      sm_count(cuda))[0] > 1
     q = torch.randn(b, T, h, d, device=cuda, dtype=torch.bfloat16)
     kp = torch.randn(b * nbmax, bs, kvh, d, device=cuda, dtype=torch.bfloat16)
     vp = torch.randn(b * nbmax, bs, kvh, d, device=cuda, dtype=torch.bfloat16)
@@ -159,39 +160,62 @@ def test_flash_kernel_logsumexp_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_rmsnorm_backward_kernels_match_plain_on_card(cuda):
-    """dx and dw kernels against their plain functions, and the RMSNorm
-    Function's gradients through the kernels against autograd of the
-    plain forward."""
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [2048, 3072, 4096])
+@pytest.mark.parametrize("n", [300, 4096])
+def test_rmsnorm_backward_kernels_match_plain_on_card(cuda, n, d, dtype):
+    """The fused backward kernel's dx and dw against their plain
+    functions, and the RMSNorm Function's gradients through the kernels
+    against autograd of the plain forward."""
     from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd_dw_ref,
                                              rmsnorm_bwd_dx_ref,
                                              rmsnorm_fwd_ref, rmsnorm_ref)
-    from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_bwd_dw,
-                                                    rmsnorm_bwd_dx,
-                                                    rmsnorm_fwd)
-    bf = torch.bfloat16
-    x = torch.randn(300, 3072, device=cuda, dtype=bf)
-    w = (1 + 0.1 * torch.randn(3072, device=cuda)).to(bf)
-    dy = torch.randn(300, 3072, device=cuda, dtype=bf)
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd, rmsnorm_fwd
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, d, device=cuda, dtype=dt)
+    w = (1 + 0.1 * torch.randn(d, device=cuda)).to(dt)
+    dy = torch.randn(n, d, device=cuda, dtype=dt)
     y, rstd = rmsnorm_fwd(x, w, save_rstd=True)
     y_ref, rstd_ref = rmsnorm_fwd_ref(x, w)
     torch.testing.assert_close(y.float(), y_ref.float(), atol=2e-2,
                                rtol=2e-2)
     torch.testing.assert_close(rstd, rstd_ref, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(rmsnorm_bwd_dx(x, w, dy, rstd).float(),
+    dx, dw = rmsnorm_bwd(x, w, dy, rstd)
+    assert dx.dtype == dt and dw.dtype == torch.float32
+    torch.testing.assert_close(dx.float(),
                                rmsnorm_bwd_dx_ref(x, w, dy, rstd),
                                atol=1e-2, rtol=1e-2)
-    torch.testing.assert_close(rmsnorm_bwd_dw(x, dy, rstd),
-                               rmsnorm_bwd_dw_ref(x, dy, rstd),
+    torch.testing.assert_close(dw, rmsnorm_bwd_dw_ref(x, dy, rstd),
                                atol=1e-3, rtol=1e-4)
     xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
     got = torch.autograd.grad(rmsnorm(xs, ws), (xs, ws), dy)
     ref = torch.autograd.grad(rmsnorm_ref(xs, ws), (xs, ws), dy)
-    assert got[0].dtype == bf and got[1].dtype == bf
+    assert got[0].dtype == dt and got[1].dtype == dt
     torch.testing.assert_close(got[0].float(), ref[0].float(), atol=2e-2,
                                rtol=2e-2)
     torch.testing.assert_close(got[1].float(), ref[1].float(), atol=0.5,
                                rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,stride", [(4096, 3072, 3072), (300, 2048, 2048),
+                                        (8, 3072, 3072), (37, 3072, 3075)])
+def test_rmsnorm_backward_kernel_repeats_bitwise(cuda, n, d, stride):
+    """Two launches of the fused backward on the same inputs give the
+    same dx and dw bit for bit (no atomics; dw's partials added in a
+    fixed order), on the ring path and, with rows 3075 elements apart
+    (not 16-byte aligned), on the direct path; one launch counted each."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd_ref
+    from repro_torch.kernels.rmsnorm.kernel import LAUNCHES_BWD, rmsnorm_bwd
+    x = torch.randn(n, stride, device=cuda, dtype=torch.bfloat16)[:, :d]
+    dy = torch.randn(n, stride, device=cuda, dtype=torch.bfloat16)[:, :d]
+    w = (1 + 0.1 * torch.randn(d, device=cuda)).bfloat16()
+    _, rstd = rmsnorm_fwd_ref(x, w)
+    before = LAUNCHES_BWD.value
+    dx1, dw1 = rmsnorm_bwd(x, w, dy, rstd)
+    dx2, dw2 = rmsnorm_bwd(x, w, dy, rstd)
+    assert LAUNCHES_BWD.value == before + 2
+    assert torch.equal(dx1, dx2) and torch.equal(dw1, dw2)
 
 
 def _flash_bwd_inputs(cuda, b, sq, skv, h, kvh, d, q_offset, kv_len):
@@ -428,9 +452,8 @@ def test_two_train_steps_through_the_kernels(cuda):
                                                      128))
         assert torch.isfinite(metrics["loss"])
     counts = launch_counts()
-    for name in ("rmsnorm", "rmsnorm_bwd_dx", "rmsnorm_bwd_dw",
-                 "flash_attention", "flash_attention_bwd_dkv",
-                 "flash_attention_bwd_dq"):
+    for name in ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                 "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         assert counts[name] > 0, (name, counts)
     assert int(state["step"]) == 2
 

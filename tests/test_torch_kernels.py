@@ -84,6 +84,42 @@ def test_rmsnorm_backward_plain_matches_autodiff(shape):
     assert gx.dtype == torch.float32 and gw.dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_backward_plain_matches_pallas_kernels(dtype):
+    """rmsnorm_bwd_dx_ref / rmsnorm_bwd_dw_ref against the TPU kernels
+    rmsnorm_bwd_dx / rmsnorm_bwd_dw (Pallas, interpret mode) with five
+    row blocks of 64 (dw from five partials and one jnp sum), on the same
+    x, w, dy (drawn with numpy) and rstd.  fp32: within 1e-5.  bf16: the
+    kernel rounds its fp32 dx to bf16 once, so the plain fp32 dx rounded
+    to bf16 lies within one bf16 ulp of it (2^-7 relative at most); dw
+    is fp32 from the same products summed in another order, within 1e-5
+    of the largest |dw|."""
+    from repro.kernels.rmsnorm.kernel import rmsnorm_bwd_dw as jdw
+    from repro.kernels.rmsnorm.kernel import rmsnorm_bwd_dx as jdx
+    from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_dw_ref,
+                                             rmsnorm_bwd_dx_ref,
+                                             rmsnorm_fwd_ref)
+    n, d = 320, 96
+    jt = getattr(jnp, dtype)
+    x, dy = jnp.asarray(_np((n, d)), jt), jnp.asarray(_np((n, d)), jt)
+    w = jnp.asarray(1 + 0.1 * _np((d,)), jt)
+    tx, tw, tdy = _t(x), _t(w), _t(dy)
+    _, rstd = rmsnorm_fwd_ref(tx, tw)
+    jr = jnp.asarray(rstd.numpy()[:, None])
+    want_dx = np.asarray(jdx(x, w, dy, jr, block_rows=64, interpret=True)
+                         .astype(jnp.float32))
+    want_dw = np.asarray(jdw(x, dy, jr, block_rows=64, interpret=True))
+    dx = rmsnorm_bwd_dx_ref(tx, tw, tdy, rstd)
+    dw = rmsnorm_bwd_dw_ref(tx, tdy, rstd).numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(dx.numpy(), want_dx, atol=TOL, rtol=TOL)
+    else:
+        np.testing.assert_allclose(dx.bfloat16().float().numpy(), want_dx,
+                                   atol=1e-6, rtol=2.0 ** -7)
+    np.testing.assert_allclose(dw, want_dw, atol=TOL * np.abs(dw).max(),
+                               rtol=0)
+
+
 # ---------------------------- flash attention -------------------------------
 
 
