@@ -10,9 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
    sources in this checkout (one nvcc per CUDA source, all at once; the
    Triton rmsnorm forward compiles at its first call); print each
    kernel's ptxas registers and spills, and the count of HGMMA (wgmma)
-   instructions in the SASS of the flash forward, flash backward and
-   paged libraries, which must not be 0 (nor may a freshly built one
-   spill, nor the fused rmsnorm backward at one slice a thread, the
+   instructions in the SASS of the flash forward, flash backward, paged
+   and SSD chunk-scan libraries, which must not be 0 (nor may a freshly
+   built one spill, nor ptxas serialize a wgmma of the SSD library, nor
+   the fused rmsnorm backward spill at one slice a thread, the
    instantiations of every width up to 4096 in bf16).
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card, at the shapes phi4-mini-3.8b's serving and training
@@ -116,7 +117,13 @@ chunk-scan kernels at zamba2's shapes (the training step, prefills of
 1024, 200 and 768 tokens, one fp32 case, a 777-token prompt through
 the padding wrapper) with planted faults (the carried state dropped,
 the diagonal of L masked, dh_final ignored, da's reverse cumsum shifted
-by a row, dB summed over half the heads), the reused forward and
+by a row, dB summed over half the heads, and, of the bf16 kernels'
+design emulated in plain torch by ``ssd_blocked_fwd`` /
+``ssd_blocked_bwd``, the state fold off by one chunk and an fp32
+operand rounded to bf16 with its lo half dropped), each forward and
+backward twice bitwise equal, timed warm and cold, their bound with
+the fp32-operand products at the tensor cores' rate and, as before,
+at the CUDA cores', the reused forward and
 backward kernels at zamba2's shapes (head dim 64, rmsnorm over 4096 and
 2048), and the int8 quantize / dequantize kernels at the DDP wire's
 shapes (one bucket's weak shard, the whole per-rank payload, zero
@@ -142,7 +149,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ARCH = "phi4-mini-3.8b"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK = {"bf16_tensor": 989e12, "fp32": 67e12}
+# "fp32_tensor": a product with an fp32 operand on the tensor cores, as
+# two bf16 products (hi + lo) or one TF32 product: the TF32 rate
+PEAK = {"bf16_tensor": 989e12, "fp32_tensor": 495e12, "fp32": 67e12}
 SEED = 0
 
 # bf16 tolerances (atol, rtol), kernel vs plain version on the same
@@ -343,6 +352,12 @@ def spills(log):
     return [(fn, line) for fn, line in ptxas_lines(log)
             if any(int(n) for n in re.findall(
                 r"(\d+) bytes spill (?:stores|loads)", line))]
+
+
+def serialized(log):
+    """The lines of an nvcc log where ptxas reports wgmma serialized."""
+    return [line.strip() for line in log.splitlines()
+            if "wgmma" in line and "serialized" in line]
 
 
 def sass_count(name, opcode):
@@ -1520,84 +1535,289 @@ def ssd_bwd_faults(x, a, B, C, hprev, dy, dhf, c):
     return out
 
 
-def ssd_work(b, l, h, c, p=64, n=64):
+def ssd_work(b, l, h, c, p=64, n=64, fp32_peak="fp32_tensor"):
     """Multiply-adds the SSD scan needs, (forward, backward), each as
     {peak: count}.  C B^T (the causal pairs times n) is shared by all
     heads (B and C have one group), so it counts once per (batch, chunk);
     the rest counts per (batch, head, chunk).  Products of two bf16
     inputs (C B^T, and backward dy x^T: the pairs times p) are priced at
     the bf16 tensor-core rate, the products with an fp32 operand (L, the
-    carried state) at the fp32 rate: forward, the pairs times p (the
-    weighted sum of x) plus 2 c p n (the carried state's two terms);
-    backward, the pairs times 2 n + p (dx, dB, dC) plus 4 c p n (the
-    carried state's four terms)."""
+    carried state) at ``fp32_peak``: the tensor cores' rate for them
+    (two bf16 products or TF32; "fp32": the CUDA cores', the bound of
+    the first port's kernels): forward, the pairs times p (the weighted
+    sum of x) plus 2 c p n (the carried state's two terms); backward,
+    the pairs times 2 n + p (dx, dB, dC) plus 4 c p n (the carried
+    state's four terms)."""
     pairs = c * (c + 1) // 2
     chunks = b * (l // c)
     cb = chunks * pairs * n
     return ({"bf16_tensor": cb,
-             "fp32": chunks * h * (pairs * p + 2 * c * p * n)},
+             fp32_peak: chunks * h * (pairs * p + 2 * c * p * n)},
             {"bf16_tensor": cb + chunks * h * pairs * p,
-             "fp32": chunks * h * (pairs * (2 * n + p) + 4 * c * p * n)})
+             fp32_peak: chunks * h * (pairs * (2 * n + p) + 4 * c * p * n)})
+
+
+# planted faults of the Hopper kernels' design, emulated in plain torch
+SSD_FOLD_FAULT = "state fold off by one chunk"
+SSD_LO_FAULT = "fp32 operand rounded to bf16 (lo half dropped)"
+# bf16 terms of an fp32 operand (ssd_scan.cu: SPLIT_PARTS)
+SSD_SPLIT_PARTS = 2
+
+
+def _split(v, fault=None):
+    """An fp32 operand as the Hopper kernels feed it to bf16 wgmma: the
+    sum of SSD_SPLIT_PARTS bf16 terms, bf16(v), then bf16 of what is
+    left (SSD_LO_FAULT: rounded to bf16, the lo term dropped)."""
+    import torch
+    out, rest = torch.zeros_like(v), v
+    for _ in range(1 if fault == SSD_LO_FAULT else SSD_SPLIT_PARTS):
+        term = rest.to(torch.bfloat16).float()
+        out, rest = out + term, rest - term
+    return out
+
+
+def _ssd_chunks(x, a, B, C, chunk):
+    """fp32 views by chunk: x (b, nc, c, h, p), B and C (b, nc, c, n),
+    cum = cumsum(a) within each chunk (b, nc, c, h), T = cum at the
+    chunk's last row (b, nc, h), and L[l, s] = exp(cum_l - cum_s) for
+    l >= s, else 0 (b, nc, l, s, h)."""
+    import torch
+    b, l, h, p = x.shape
+    nc = l // chunk
+    xf = x.float().reshape(b, nc, chunk, h, p)
+    Bf = B.float().reshape(b, nc, chunk, -1)
+    Cf = C.float().reshape(b, nc, chunk, -1)
+    cum = torch.cumsum(a.float().reshape(b, nc, chunk, h), dim=2)
+    tril = torch.ones(chunk, chunk, dtype=torch.bool,
+                      device=x.device).tril()[..., None]
+    L = torch.where(tril, torch.exp(cum[:, :, :, None] - cum[:, :, None]),
+                    0.0)
+    return xf, Bf, Cf, cum, cum[:, :, -1], L
+
+
+def ssd_blocked_fwd(x, a, B, C, chunk, fault=None):
+    """The forward as the Hopper kernels compute it, in plain torch with
+    fp32 sums: each chunk's local state from its rows weighted by
+    exp(T - cum_s), split into SSD_SPLIT_PARTS bf16 terms, against B;
+    h_prev folded across the chunks in chunk order; y = split((C B^T) o
+    L) x + exp(cum) C split(h_prev)^T.  SSD_FOLD_FAULT: the fold starts
+    one chunk late (chunk 0's state never enters); SSD_LO_FAULT: every
+    split keeps its first term only.  -> (y in x.dtype, h_final, h_prev)
+    as ``ssd_scan_fwd``."""
+    import torch
+    xf, Bf, Cf, cum, T, L = _ssd_chunks(x, a, B, C, chunk)
+    b, nc = xf.shape[:2]
+    w = torch.exp(T[:, :, None] - cum)[..., None]
+    S = torch.einsum("bkshp,bksn->bkhpn", _split(w * xf, fault), Bf)
+    hprev = torch.zeros_like(S)
+    state = torch.zeros_like(S[:, 0])
+    for k in range(nc):
+        hprev[:, k] = state
+        if not (fault == SSD_FOLD_FAULT and k == 0):
+            state = torch.exp(T[:, k])[..., None, None] * state + S[:, k]
+    P = _split(torch.einsum("bkln,bksn->bkls", Cf, Bf)[..., None] * L, fault)
+    y = (torch.exp(cum)[..., None]
+         * torch.einsum("bkln,bkhpn->bklhp", Cf, _split(hprev, fault))
+         + torch.einsum("bklsh,bkshp->bklhp", P, xf))
+    return y.reshape(x.shape).to(x.dtype), state, hprev
+
+
+def ssd_blocked_bwd(x, a, B, C, hprev, dy, dhfin, chunk, group, fault=None):
+    """The backward as the Hopper kernels compute it, in plain torch with
+    fp32 sums: each chunk's local state gradient from dy weighted by
+    exp(cum_l), split, against C; dh folded from dh_final through the
+    later chunks in reverse; per head the products with P, L o G, h_prev
+    and dh split into SSD_SPLIT_PARTS bf16 terms (hi + lo); dB and dC
+    summed over the heads of each group of ``group`` in head order, the
+    groups added in order.  SSD_FOLD_FAULT: the reverse fold starts one
+    chunk late (the last chunk's gradient never enters); SSD_LO_FAULT:
+    every split drops its lo half.  -> (dx, da, dB, dC) as
+    ``ssd_scan_bwd``."""
+    import torch
+    xf, Bf, Cf, cum, T, L = _ssd_chunks(x, a, B, C, chunk)
+    b, nc, c, h, p = xf.shape
+    dyf = dy.float().reshape(xf.shape)
+    ecum = torch.exp(cum)
+    D = torch.einsum("bklhp,bkln->bkhpn", _split(ecum[..., None] * dyf,
+                                                 fault), Cf)
+    dh = torch.zeros_like(D)
+    state = dhfin.float()
+    for k in reversed(range(nc)):
+        dh[:, k] = state
+        if k > 0 and not (fault == SSD_FOLD_FAULT and k == nc - 1):
+            state = torch.exp(T[:, k])[..., None, None] * state + D[:, k]
+    hin, dhs = _split(hprev.float(), fault), _split(dh, fault)
+    G = torch.einsum("bklhp,bkshp->bklsh", dyf, xf)
+    SL = torch.einsum("bkln,bksn->bkls", Cf, Bf)[..., None] * L
+    LG = L * G
+    SLG = SL * G
+    dx = torch.einsum("bklsh,bklhp->bkshp", _split(SL, fault), dyf)
+    LGs = _split(LG, fault)
+    dC = torch.einsum("bklsh,bksn->bklhn", LGs, Bf)
+    dB = torch.einsum("bklsh,bkln->bkshn", LGs, Cf)
+    hC = torch.einsum("bklhp,bkhpn->bklhn", dyf, hin)
+    dC = dC + ecum[..., None] * hC
+    dcum = (SLG.sum(3) - SLG.sum(2)
+            + ecum * torch.einsum("bklhn,bkln->bklh", hC, Cf))
+    de = torch.exp(T[:, :, None] - cum)
+    Bdh = torch.einsum("bksn,bkhpn->bkshp", Bf, dhs)
+    dx = dx + de[..., None] * Bdh
+    dB = dB + de[..., None] * torch.einsum("bkshp,bkhpn->bkshn", xf, dhs)
+    dde = (xf * Bdh).sum(-1)
+    dcum = dcum - de * dde
+    dcum[:, :, -1] += ((de * dde).sum(2) + torch.exp(T) * torch.einsum(
+        "bkhpn,bkhpn->bkh", hprev.float(), dh))
+    da = dcum.flip(2).cumsum(2).flip(2)
+
+    def grouped(t):                     # (b, nc, c, h, n) -> (b, l, n)
+        parts = []
+        for g0 in range(0, h, group):
+            part = t[:, :, :, g0]
+            for j in range(g0 + 1, min(h, g0 + group)):
+                part = part + t[:, :, :, j]
+            parts.append(part)
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total.reshape(b, nc * c, -1)
+    return (dx.reshape(x.shape).to(x.dtype), da.reshape(a.shape).to(a.dtype),
+            grouped(dB).to(B.dtype), grouped(dC).to(C.dtype))
+
+
+def ssd_design_faults(x, a, B, C, hprev, dy, dhf, c, group, outs):
+    """The planted faults of the Hopper kernels' design ({fault: {output:
+    emulated output}}), forward and backward: SSD_FOLD_FAULT (over
+    several chunks) and SSD_LO_FAULT, each on every output it has among
+    ``outs`` (the forward's)."""
+    fwd, bwd = {}, {}
+    for fault in (SSD_FOLD_FAULT, SSD_LO_FAULT):
+        if fault == SSD_FOLD_FAULT and x.shape[1] <= c:
+            continue
+        y, hf, hp = ssd_blocked_fwd(x, a, B, C, c, fault)
+        fwd[fault] = {k: v for k, v in (("y", y), ("h_final", hf),
+                                        ("h_prev", hp)) if k in outs}
+        bwd[fault] = dict(zip(("dx", "da", "dB", "dC"), ssd_blocked_bwd(
+            x, a, B, C, hprev, dy, dhf, c, group, fault)))
+    return fwd, bwd
 
 
 def check_ssd(dev, b, l, h, c, dtype="bfloat16", train=False):
     """Forward and backward kernel against their plain functions on the
     same inputs: y, h_final and (over several chunks) h_prev; dx, da, dB,
     dC from the plain forward's h_prev, and chained from the kernel
-    forward's own h_prev.  Planted faults as in ``ssd_fwd_faults`` /
-    ``ssd_bwd_faults``.  The forward is timed as its caller runs it:
-    saving h_prev for training, not for a prefill."""
+    forward's own h_prev.  Each kernel twice on the same inputs must
+    agree bitwise.  Planted faults as in ``ssd_fwd_faults`` /
+    ``ssd_bwd_faults`` and, for the bf16 (Hopper) kernels, those of
+    their design (``ssd_design_faults``).  The bf16 forward that saves
+    h_prev (training) is the Hopper kernels; without it (serving) the
+    CUDA-core kernel, whose y and h_final are held too ("serving"
+    outputs).  The forward is timed as its caller runs it: saving h_prev
+    for training, not for a prefill (then the Hopper forward at the same
+    shape beside it, ``ms_hopper``); warm (``ms``, the same inputs again,
+    in L2 where they fit) and cold (``ms_cold``, each call on its own
+    copy, > COLD_BYTES between two uses).  The bound prices the products
+    with an fp32 operand at the tensor cores' rate for them
+    (``bound_ms``) and, as the first port's CUDA-core kernels were held,
+    at the fp32 CUDA-core rate (``bound_ms_cuda_cores``)."""
     import torch
+    from repro_torch.kernels.build import sm_count
     from repro_torch.kernels.ssd_scan import (ssd_bwd_ref, ssd_fwd_ref,
                                               ssd_scan)
-    from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_bwd,
+    from repro_torch.kernels.ssd_scan.kernel import (scan_plan, ssd_scan_bwd,
                                                      ssd_scan_fwd)
     dt = getattr(torch, dtype)
     x, a, B, C, dy, dhf = ssd_inputs(dev, b, l, h, c, dt)
     y, hfin, hprev = ssd_scan_fwd(x, a, B, C, chunk=c, save_hprev=True)
+    sy, sh = ssd_scan_fwd(x, a, B, C, chunk=c)         # serving
+    again = (*ssd_scan_fwd(x, a, B, C, chunk=c, save_hprev=True),
+             *ssd_scan_fwd(x, a, B, C, chunk=c))
+    fwd_bitwise = all(torch.equal(u, v) for u, v in zip(
+        (y, hfin, hprev, sy, sh), again))
+    del again
     ry, rh, rhp = ssd_fwd_ref(x, a, B, C, c)
-    outs, refs = {"y": y, "h_final": hfin}, {"y": ry, "h_final": rh,
-                                             "h_prev": rhp}
+    outs = {"y": y, "h_final": hfin, "y serving": sy, "h_final serving": sh}
+    refs = {"y": ry, "h_final": rh, "h_prev": rhp, "y serving": ry,
+            "h_final serving": rh}
     if l > c:
         outs["h_prev"] = hprev
-    fwd = ssd_verdict(outs, refs, ssd_fwd_faults(x, a, B, C, c, ry))
+    plan = scan_plan(b, l, h, c, sm_count(dev))
+    design_f, design_b = ({}, {}) if dt != torch.bfloat16 else \
+        ssd_design_faults(x, a, B, C, rhp, dy, dhf, c, plan.group, outs)
+    fwd = ssd_verdict(outs, refs, {**ssd_fwd_faults(x, a, B, C, c, ry),
+                                   **design_f})
     names = ("dx", "da", "dB", "dC")
     rg = dict(zip(names, ssd_bwd_ref(x, a, B, C, rhp, dy, dhf, c)))
-    bwd = ssd_verdict(
-        dict(zip(names, ssd_scan_bwd(x, a, B, C, rhp, dy, dhf, chunk=c))),
-        rg, ssd_bwd_faults(x, a, B, C, rhp, dy, dhf, c))
+    got = ssd_scan_bwd(x, a, B, C, rhp, dy, dhf, chunk=c)
+    bwd_bitwise = all(torch.equal(u, v) for u, v in zip(
+        got, ssd_scan_bwd(x, a, B, C, rhp, dy, dhf, chunk=c)))
+    bwd = ssd_verdict(dict(zip(names, got)), rg,
+                      {**ssd_bwd_faults(x, a, B, C, rhp, dy, dhf, c),
+                       **design_b})
     bwd["chained"] = ssd_verdict(
         dict(zip(names, ssd_scan_bwd(x, a, B, C, hprev, dy, dhf, chunk=c))),
         rg, {})
-    del y, hfin, hprev
+    del y, hfin, hprev, sy, sh, got, design_f, design_b
     es = x.element_size()
-    f_flops, b_flops = ({k: 2 * v for k, v in w.items()}
-                        for w in ssd_work(b, l, h, c))
     f_bytes = ((2 * x.numel() + B.numel() + C.numel()) * es + a.numel() * 4
                + rh.numel() * 4 + (rhp.numel() * 4 if train else 0))
     b_bytes = ((3 * x.numel() + 2 * (B.numel() + C.numel())) * es
                + 2 * a.numel() * 4 + (rhp.numel() + dhf.numel()) * 4)
+    bounds = {}
+    for label, peak in (("", "fp32_tensor"), ("_cuda_cores", "fp32")):
+        for kind, nbytes, work in zip(("fwd", "bwd"), (f_bytes, b_bytes),
+                                      ssd_work(b, l, h, c, fp32_peak=peak)):
+            bounds[kind, label] = bound(nbytes,
+                                        {k: 2 * v for k, v in work.items()})
     case = f"b={b},l={l},h={h},p=64,n=64,c={c},{dtype}" + (
         ",saves h_prev (training)" if train else "")
     none = "none: no single PyTorch call computes an SSD chunk scan"
+    plan_row = ({"group": plan.group, "blocks": plan.blocks,
+                 "state_blocks": plan.state_blocks, "tiles": plan.tiles}
+                if dt == torch.bfloat16 else
+                "fp32: the CUDA-core kernels, one block per (batch, head)")
+    cold = max(2, COLD_BYTES // (x.numel() * es) + 2)
+    copies = [(x.clone(), a.clone(), B.clone(), C.clone(), dy.clone(),
+               rhp.clone()) for _ in range(cold)]
+
+    def timed(kind, fn, cold_fn, plain):
+        ms = time_ms(fn)
+        b_ms, b_by = bounds[kind, ""]
+        c_ms, c_by = bounds[kind, "_cuda_cores"]
+        return {"case": case, "plan": plan_row, "ms": ms,
+                "ms_cold": cold_ms([lambda t=t: cold_fn(*t) for t in copies]),
+                "host_ms": host_ms(fn), "plain_ms": time_ms(plain, 3),
+                "library_ms": None, "library_covers": none,
+                "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+                "bound_ms_cuda_cores": c_ms, "bound_by_cuda_cores": c_by,
+                "bound_share_cuda_cores": c_ms / ms}
+
     op_host, wrapper_host = host_ms_pair(
         lambda: ssd_scan(x, a, B, C, chunk=c),
         lambda: ssd_scan_fwd(x, a, B, C, chunk=c, save_hprev=train))
-    fwd.update({"case": case,
-                "ms": time_ms(lambda: ssd_scan_fwd(x, a, B, C, chunk=c,
-                                                   save_hprev=train)),
-                "host_ms": op_host, "host_ms_wrapper": wrapper_host,
-                "plain_ms": time_ms(lambda: ssd_fwd_ref(x, a, B, C, c), 3),
-                "library_ms": None, "library_covers": none,
-                **dict(zip(("bound_ms", "bound_by"),
-                           bound(f_bytes, f_flops)))})
-    bk = lambda: ssd_scan_bwd(x, a, B, C, rhp, dy, dhf, chunk=c)  # noqa
-    bwd.update({"case": case, "ms": time_ms(bk), "host_ms": host_ms(bk),
-                "plain_ms": time_ms(lambda: ssd_bwd_ref(x, a, B, C, rhp, dy,
-                                                        dhf, c), 3),
-                "library_ms": None, "library_covers": none,
-                **dict(zip(("bound_ms", "bound_by"),
-                           bound(b_bytes, b_flops)))})
+    fwd.update(timed(
+        "fwd", lambda: ssd_scan_fwd(x, a, B, C, chunk=c, save_hprev=train),
+        lambda xc, ac, Bc, Cc, dyc, hc: ssd_scan_fwd(xc, ac, Bc, Cc, chunk=c,
+                                                     save_hprev=train),
+        lambda: ssd_fwd_ref(x, a, B, C, c)))
+    fwd.update({"host_ms": op_host, "host_ms_wrapper": wrapper_host,
+                "bitwise_repeat": fwd_bitwise,
+                "ok": fwd["ok"] and fwd_bitwise,
+                "forward": ("hopper" if train and dt == torch.bfloat16 else
+                            "cuda cores")})
+    if not train and dt == torch.bfloat16:
+        fwd["ms_hopper"] = time_ms(
+            lambda: ssd_scan_fwd(x, a, B, C, chunk=c, save_hprev=True))
+        fwd["ms_cold_hopper"] = cold_ms([
+            lambda t=t: ssd_scan_fwd(*t[:4], chunk=c, save_hprev=True)
+            for t in copies])
+    bwd.update(timed(
+        "bwd", lambda: ssd_scan_bwd(x, a, B, C, rhp, dy, dhf, chunk=c),
+        lambda xc, ac, Bc, Cc, dyc, hc: ssd_scan_bwd(xc, ac, Bc, Cc, hc, dyc,
+                                                     dhf, chunk=c),
+        lambda: ssd_bwd_ref(x, a, B, C, rhp, dy, dhf, c)))
+    bwd.update({"bitwise_repeat": bwd_bitwise,
+                "ok": bwd["ok"] and bwd_bitwise})
+    del copies
     return {"ssd_scan": fwd, "ssd_scan_bwd": bwd}
 
 
@@ -2415,6 +2635,76 @@ def ssd_forward_probe(fwd):
     return probe, calls
 
 
+def ssd_exact(x, a, B, C, chunk):
+    """The chunked scan in fp64 (y in x.dtype, rounded once; h_final
+    fp32): the SSD outputs the serving-gate probe substitutes."""
+    import torch
+    x, a, B, C = (t.double() for t in (x, a, B, C))
+    state = torch.zeros(x.shape[0], x.shape[2], x.shape[3], B.shape[-1],
+                        dtype=torch.float64, device=x.device)
+    mask = torch.ones(chunk, chunk, dtype=torch.bool,
+                      device=x.device).tril()[None, :, :, None]
+    ys = []
+    for lo in range(0, x.shape[1], chunk):
+        sl = slice(lo, lo + chunk)
+        xc, Bc, Cc = x[:, sl], B[:, sl], C[:, sl]
+        cum = torch.cumsum(a[:, sl], 1)
+        L = torch.where(mask, torch.exp(cum[:, :, None] - cum[:, None]), 0.0)
+        ys.append(torch.einsum("bln,bsn,blsh,bshp->blhp", Cc, Bc, L, xc)
+                  + torch.einsum("bln,bhpn,blh->blhp", Cc, state,
+                                 torch.exp(cum)))
+        state = (torch.einsum("bsh,bshp,bsn->bhpn",
+                              torch.exp(cum[:, -1:] - cum), xc, Bc)
+                 + state * torch.exp(cum[:, -1])[:, :, None, None])
+    return torch.cat(ys, 1).to(torch.bfloat16), state.float()
+
+
+def ssd_gate_probe(model, ssd_ref, slow, forced, ref):
+    """Recorded, not gated: why the serving forward keeps the CUDA-core
+    kernel.  The slow-decay SSD-only logits (bf16 ulps of the largest,
+    against ``ref``, the plain path's) with the Hopper forward on the
+    serving path, with fp64 SSD outputs (``ssd_exact``), and for the
+    plain path itself with its fp32 y scaled by (1 + 1e-7 N(0, 1)) before
+    rounding, three seeds."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import ssm_common
+
+    fwd = ssd_ops.ssd_scan_fwd      # the wrapper, before it is patched
+
+    def hopper(x, a, B, C, *, chunk, save_hprev=False):
+        return fwd(x, a, B, C, chunk=chunk, save_hprev=True)[:2]
+
+    def exact(x, a, B, C, *, chunk, save_hprev=False):
+        return ssd_exact(x, a, B, C, chunk)
+
+    step = ssm_common.ssd_chunk_step
+
+    def noisy(seed):
+        g = torch.Generator(device=ref.device).manual_seed(seed)
+
+        def f(hprev, xc, ac, Bc, Cc, out_dtype):
+            h, y = step(hprev, xc, ac, Bc, Cc, torch.float32)
+            noise = torch.randn(y.shape, device=y.device, generator=g)
+            return h, (y * (1 + 1e-7 * noise)).to(out_dtype)
+        return f
+
+    runs = [("hopper forward on the serving path", model,
+             (ssd_ops, "ssd_scan_fwd", hopper)),
+            ("fp64 SSD outputs", model, (ssd_ops, "ssd_scan_fwd", exact))]
+    runs += [(f"plain path, y x (1 + 1e-7 N(0, 1)), seed {seed}", ssd_ref,
+              (ssm_common, "ssd_chunk_step", noisy(seed)))
+             for seed in (1, 2, 3)]
+    out = []
+    for label, m, patch in runs:
+        rows = logit_rows(forced(m, slow, patches=[patch]), ref,
+                          bf16_ulps=HYBRID_SSD_LOGIT_ULPS, same_argmax=True,
+                          route="ssd only")
+        out.append({"route": label, "bf16_ulps": [r["tol_used"]
+                                                  for r in rows]})
+    return out
+
+
 def slow_decay(params):
     """``params`` with every Mamba layer's A_log set to SLOW_A_LOG."""
     import torch
@@ -2540,6 +2830,7 @@ def hybrid_serve_phase(dev):
                      "tol_used": max(r["tol_used"] for r in rows),
                      "caught": not all(r["ok"] for r in rows)})
     del bad
+    probe_rows = ssd_gate_probe(model, ssd_ref, slow, forced, ref)
     ref = forced(plain, slow)
     cmp += logit_rows(got, ref, HYBRID_E2E_REL_TOL, route="whole path",
                       **lab)
@@ -2548,7 +2839,8 @@ def hybrid_serve_phase(dev):
     for c in cmp + recorded:
         print(json.dumps({"hybrid_e2e_vs_plain": c}), flush=True)
     print(json.dumps({"hybrid_slow_decay_op": slow_op,
-                      "hybrid_serve_controls": controls}), flush=True)
+                      "hybrid_serve_controls": controls,
+                      "hybrid_ssd_gate_probe": probe_rows}), flush=True)
     prof = profiled(lambda: e2e_run(model, params, prompts, arrivals, dev, 0,
                                     kernels=HYBRID_SERVING_KERNELS))
     print(json.dumps({"hybrid_profile": prof}), flush=True)
@@ -2556,6 +2848,7 @@ def hybrid_serve_phase(dev):
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "runs": runs, "vs_plain": cmp, "slow_decay_op": slow_op,
            "controls": controls, "recorded": recorded,
+           "ssd_gate_probe": probe_rows,
            "ssd_only_bf16_ulps": HYBRID_SSD_LOGIT_ULPS,
            "rel_tol": HYBRID_E2E_REL_TOL, "profile": prof}
     del params
@@ -3363,12 +3656,19 @@ def main():
     else:
         print("ptxas rmsnorm_bwd: library from the build cache, its ptxas "
               "lines (spills) not read in this run", flush=True)
-    # the wgmma kernels: no spill in a fresh build, HGMMA in the SASS
+    # the wgmma kernels: no spill in a fresh build, HGMMA in the SASS; the
+    # SSD library also no wgmma that ptxas serializes (C75xx)
     for lib in ("flash_attention", "flash_attention_bwd",
-                "paged_chunk_attention"):
+                "paged_chunk_attention", "ssd_scan"):
         if lib in build.build_logs:
             failures += [f"{lib} {fn}: ptxas spills: {line}"
                          for fn, line in spills(build.build_logs[lib])]
+            if lib == "ssd_scan":
+                serial = serialized(build.build_logs[lib])
+                print(json.dumps({"ptxas": lib, "serialized_wgmma": serial}),
+                      flush=True)
+                failures += [f"{lib}: ptxas serializes wgmma: {line}"
+                             for line in serial]
         else:
             print(f"ptxas {lib}: library from the build cache, its ptxas "
                   "lines (spills) not read in this run", flush=True)

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the attention kernels (the flash
-// forward and backward, paged chunk attention) and the rmsnorm backward:
+// forward and backward, paged chunk attention), the rmsnorm backward and
+// the SSD chunk scan:
 // TMA tensor maps and loads, 1-D bulk copies, mbarriers, named barriers,
 // register reallocation between warpgroups, and warpgroup matrix
 // multiplies (wgmma) with shared-memory descriptors and register A
@@ -29,7 +30,8 @@
 // a result, rounded to bf16, as the register A operand of a following
 // product whose K axis is the result's columns -- so S and P of the
 // attention forward, and S, P, dP and dS of its backward, never touch
-// shared memory.
+// shared memory; acc_to_a_parts passes an fp32 result as two or three
+// such operands (hi, lo or hi, mid, lo).
 #pragma once
 
 #include <cuda.h>
@@ -273,8 +275,32 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[M], int k,
   a[3] = pack_bf16x2(d[8 * k + 6], d[8 * k + 7]);
 }
 
-// D[64 x 64] (+)= A B, A and B from shared memory (descriptors)
-template <int TRANS_B>
+// acc_to_a for an fp32 operand that bf16 alone would round too coarsely:
+// each value v as PARTS bf16 terms, hi = bf16(v), then bf16 of what is
+// left, ..., as PARTS register A operands whose products added in one
+// fp32 accumulator carry v to about 2^-8 PARTS of itself (2: ~2^-17, 3:
+// fp32's own rounding).
+template <int PARTS, int M>
+__device__ __forceinline__ void acc_to_a_parts(const float (&d)[M], int k,
+                                               uint32_t (&a)[PARTS][4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float v0 = d[8 * k + 2 * q], v1 = d[8 * k + 2 * q + 1];
+#pragma unroll
+    for (int j = 0; j < PARTS; ++j) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+      const float2 hf = __bfloat1622float2(h);
+      a[j][q] = *reinterpret_cast<const uint32_t*>(&h);
+      v0 -= hf.x;
+      v1 -= hf.y;
+    }
+  }
+}
+
+// D[64 x 64] (+)= A B, A and B from shared memory (descriptors).  TRANS_A
+// = 1 reads A M-major: its tile's rows are the K axis and its columns M,
+// described as an MN-major operand (desc_mnmajor).
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                               uint64_t db, int accumulate) {
   asm volatile(
@@ -284,7 +310,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -293,7 +319,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // D[64 x 64] (+)= A B, A from registers (four bf16x2 a thread in the

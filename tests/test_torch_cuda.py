@@ -360,14 +360,19 @@ def _rel_close(got, want, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,h,c,dtype", [
     (2, 512, 8, 256, "bfloat16"), (1, 200, 8, 200, "bfloat16"),
-    (1, 300, 4, 100, "float32"), (1, 96, 3, 32, "float32")])
+    (1, 300, 4, 100, "float32"), (1, 96, 3, 32, "float32"),
+    (2, 2048, 64, 256, "bfloat16")])
 def test_ssd_scan_kernels_match_plain_on_card(cuda, b, l, h, c, dtype):
     """Forward kernel: y, h_final and h_prev against the plain forward;
     backward kernel: dx, da, dB, dC against the plain reverse-recurrence
     backward on the same h_prev, dy and dh_final.  Max |difference| over
     max |plain| within 1e-2 for bf16 outputs and 1e-4 for fp32 ones (as
-    chip_smoke.py holds them); the same backward twice is bitwise the
-    same (no atomics)."""
+    chip_smoke.py holds them); the same forward twice and the same
+    backward twice are bitwise the same (no atomics).  The last case is
+    zamba2's training step (b 2 x 2048, 64 heads, h_prev saved).  The
+    bf16 forward runs the Hopper kernels when it saves h_prev and the
+    CUDA-core kernel (serving) when it does not, both held here; the fp32
+    cases run the CUDA-core kernels."""
     from repro_torch.kernels.ssd_scan import ssd_bwd_ref, ssd_fwd_ref
     from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_bwd,
                                                      ssd_scan_fwd)
@@ -375,8 +380,12 @@ def test_ssd_scan_kernels_match_plain_on_card(cuda, b, l, h, c, dtype):
     x, a, B, C, dy, dhf = _ssd_inputs(b, l, h, c, dt, cuda)
     tol = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
     y, hf, hp = ssd_scan_fwd(x, a, B, C, chunk=c, save_hprev=True)
+    for g1, g2 in zip((y, hf, hp), ssd_scan_fwd(x, a, B, C, chunk=c,
+                                                save_hprev=True)):
+        assert torch.equal(g1, g2)
+    sy, sh = ssd_scan_fwd(x, a, B, C, chunk=c)
     ry, rh, rhp = ssd_fwd_ref(x, a, B, C, c)
-    for got, want in ((y, ry), (hf, rh), (hp, rhp)):
+    for got, want in ((y, ry), (hf, rh), (hp, rhp), (sy, ry), (sh, rh)):
         if want.abs().max() > 0:
             _rel_close(got, want, tol[got.dtype])
     grads = ssd_scan_bwd(x, a, B, C, rhp, dy, dhf, chunk=c)
