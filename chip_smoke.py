@@ -7,14 +7,14 @@ NVIDIA GPU.
 Phases (any failure exits non-zero and prints no result line):
 
 1. card: name and power limit (nvidia-smi); build every kernel from the
-   sources in this checkout (one nvcc per CUDA source, all at once; the
-   Triton rmsnorm forward compiles at its first call); print each
-   kernel's ptxas registers and spills, and the count of HGMMA (wgmma)
-   instructions in the SASS of the flash forward, flash backward, paged
-   and SSD chunk-scan libraries, which must not be 0 (nor may a freshly
-   built one spill, nor ptxas serialize a wgmma of the SSD library, nor
+   sources in this checkout (one nvcc per CUDA source, all at once);
+   print each kernel's ptxas registers and spills, and the count of HGMMA
+   (wgmma) instructions in the SASS of the flash forward, flash backward,
+   paged and SSD chunk-scan libraries, which must not be 0 (nor may a
+   freshly built one spill, nor ptxas serialize a wgmma of the SSD library, nor
    the fused rmsnorm backward spill at one slice a thread, the
-   instantiations of every width up to 4096 in bf16).
+   instantiations of every width up to 4096 in bf16, nor any
+   instantiation of the rmsnorm forward).
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card, at the shapes phi4-mini-3.8b's serving and training
    paths give it, with its time, the plain version's time, one PyTorch
@@ -22,7 +22,9 @@ Phases (any failure exits non-zero and prints no result line):
    never calls) and the least time the card could take (bytes over
    3.35 TB/s or operations over the peak rate, whichever is larger).
    Each case also holds the kernel's output against plain versions with
-   a planted fault (the rmsnorm weight ignored; the fused rmsnorm
+   a planted fault (the rmsnorm weight ignored, one warp's partial left
+   out of its block's sum of squares, a persistent block's rstd carried
+   from its previous row; the fused rmsnorm
    backward's projection term or last row block dropped, dx's dot from
    the previous row of its block's ring, one block's dw partial left out
    of the fixed-order sum; a key tile dropped, a row's own key masked,
@@ -40,7 +42,11 @@ Phases (any failure exits non-zero and prints no result line):
    repeat bitwise and write exact zeros for padding rows, its faults
    include "one split dropped" and "combine rescale dropped", and it is
    timed warm (``ms``) and cold (``ms_cold``, each call on its own copy
-   of the pools, > 64 MB of K/V between two uses).  The fused rmsnorm
+   of the pools, > 64 MB of K/V between two uses).  The rmsnorm forward
+   runs at the decode tick, at phi4's and zamba2's training shapes with
+   rstd (held against the plain rstd), in fp32, on rows 3075 elements
+   apart and at d 2500; every case repeats bitwise and is timed warm and
+   cold beside its bound and ``F.rms_norm``.  The fused rmsnorm
    backward (dx and dw in one launch) runs at phi4's and zamba2's
    training shapes and a decode-sized one, repeats bitwise and is timed
    warm and cold beside autograd of ``F.rms_norm``.  The backward
@@ -112,7 +118,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 The kernel cases of phase 2 include both top-k gating kernels at the
 MoE shapes (qwen2-moe's decode, prefill and training rows, 64 experts
-top-6, 128 top-8, no renorm, tie rows) with planted faults, both SSD
+top-6, 128 top-8, no renorm, tie rows) with planted faults (among them
+the forward's lane groups emulated by ``gating_lane_groups`` with the
+row's last lane ignored), the forward repeating bitwise, both SSD
 chunk-scan kernels at zamba2's shapes (the training step, prefills of
 1024, 200 and 768 tokens, one fp32 case, a 777-token prompt through
 the padding wrapper) with planted faults (the carried state dropped,
@@ -238,7 +246,7 @@ MOE_LAYER_TOL = 1e-2
 MOE_E2E_REL_TOL = E2E_REL_TOL
 
 KERNEL_META = {
-    "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
+    "rmsnorm": ("cuda", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_fwd.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:36"),
     "flash_attention": (
         "cuda", "src/repro_torch/kernels/flash_attention/csrc/"
@@ -399,7 +407,7 @@ def _events_ms(run, iters):
 def time_ms(fn, iters=20, warmup=3, stream=None):
     """Device time of one ``fn()``: ``iters`` calls captured in one CUDA
     graph and replayed between two events, so the host's launch cost
-    (Python, ctypes, Triton's launcher) is not counted.  ``stream``: the
+    (Python, ctypes) is not counted.  ``stream``: the
     side stream to warm up and capture on (default: warm up on the
     current stream, capture on torch's own side stream)."""
     import torch
@@ -501,29 +509,123 @@ def controls(name, got, faulty):
 # --------------------------------- kernels ----------------------------------
 
 
-def check_rmsnorm(dev, n, d):
+# the rmsnorm forward kernel's design faults (rmsnorm_fwd.cu), emulated in
+# plain torch by ``rmsnorm_blocks``
+RMS_WARP_FAULT = "one warp's partial left out of the block's sum of squares"
+RMS_CARRY_FAULT = "a persistent block's rstd carried from its previous row"
+
+
+def rmsnorm_blocks(x, w, plan, eps=1e-6, fault=None):
+    """(y in x.dtype, rstd (n,) fp32) as the rmsnorm forward kernel
+    computes them under ``plan`` (``kernels.rmsnorm.kernel.fwd_plan``):
+    block b takes the rows ``plan.rows[b]``, its thread t the row's
+    16-byte slices t, t + 32 * plan.warps, ..., the block's sum of
+    squares its warps' partials.  Fault RMS_WARP_FAULT: warp 0's partial
+    (its threads' slices) left out of the sum (not out of y).
+    Fault RMS_CARRY_FAULT: every row of a block but its first normalised
+    by the rstd of the row before it."""
+    import torch
+    n, d = x.shape
+    xf = x.float()
+    sq = xf.square()
+    if fault == RMS_WARP_FAULT:
+        vec = torch.arange(d, device=x.device) // (16 // x.element_size())
+        sq = sq * (vec % (32 * plan.warps) >= 32)
+    elif fault not in (None, RMS_CARRY_FAULT):
+        raise ValueError(fault)
+    rstd = torch.rsqrt(sq.sum(dim=-1) / d + eps)
+    if fault == RMS_CARRY_FAULT:
+        src = torch.arange(n, device=x.device) - 1
+        first = torch.tensor([lo for lo, _ in plan.rows], dtype=torch.long,
+                             device=x.device)
+        src[first] = first
+        rstd = rstd[src]
+    return (xf * rstd[:, None] * w.float()).to(x.dtype), rstd
+
+
+def check_rmsnorm(dev, n, d, dtype="bfloat16", stride=None,
+                  save_rstd=False):
+    """The forward kernel against the plain forward on the same x (n, d),
+    rows ``stride`` elements apart (default d), and w: y within
+    TOL["rmsnorm"], with ``save_rstd`` (the training path) rstd within
+    TOL["rmsnorm_rstd"] of the plain rstd; two launches bitwise equal.
+    Planted faults on y (and rstd): the weight ignored, and the kernel's
+    design faults emulated by ``rmsnorm_blocks``: one warp's partial
+    left out of the block's sum of squares, and, where a block of the
+    plan has two rows or more, a persistent block's rstd carried from its
+    previous row.
+    Timed as the path calls it (with rstd at the training shapes): warm
+    (``ms``) and cold (``ms_cold``: each call on its own copy of x, > 64
+    MB of them between two uses), each beside the bound and beside a
+    device copy of the same bytes (``copy_ms``, ``copy_ms_cold``: what
+    the card's memory gives this even mix of reads and writes); host
+    time of one eager call through the op as serving calls it
+    (``host_ms``) and through the wrapper (``host_ms_wrapper``), in
+    turn, least of five."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
-    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd
+    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_fwd_ref,
+                                             rmsnorm_ref)
+    from repro_torch.kernels.rmsnorm.kernel import fwd_plan_for, rmsnorm_fwd
+    dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn(n, d, device=dev, generator=g).bfloat16()
-    w = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).bfloat16()
-    got, ref = rmsnorm(x, w), rmsnorm_ref(x, w)
-    err, used, ok = compare("rmsnorm", got, ref)
-    ctl = controls("rmsnorm", got, {
-        "weight ignored": rmsnorm_ref(x, torch.ones_like(w))})
-    lib = getattr(F, "rms_norm", None)
-    b_ms, b_by = bound(2 * n * d * 2 + d * 2, 4 * n * d, "fp32")
+    x = torch.randn(n, stride or d, device=dev, generator=g).to(dt)[:, :d]
+    w = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dt)
+    plan = fwd_plan_for(x)
+    if save_rstd:
+        fn = lambda: rmsnorm_fwd(x, w, save_rstd=True)   # noqa: E731
+        plain = lambda: rmsnorm_fwd_ref(x, w)            # noqa: E731
+    else:
+        fn = lambda: rmsnorm(x, w)                       # noqa: E731
+        plain = lambda: rmsnorm_ref(x, w)                # noqa: E731
+    first, second = fn(), fn()
+    got, rstd = first if save_rstd else (first, None)
+    bitwise = bool(torch.equal(got, second[0] if save_rstd else second) and
+                   (rstd is None or torch.equal(rstd, second[1])))
+    ref, ref_rstd = rmsnorm_fwd_ref(x, w)
+    designed = [RMS_WARP_FAULT] + ([RMS_CARRY_FAULT] if max(
+        hi - lo for lo, hi in plan.rows) > 1 else [])
+    faulty = {f: rmsnorm_blocks(x, w, plan, fault=f) for f in designed}
+    row = checked("rmsnorm", got, ref, {
+        "weight ignored": rmsnorm_ref(x, torch.ones_like(w)),
+        **{f: out[0] for f, out in faulty.items()}})
+    if save_rstd:
+        row["residual"] = {"rstd": checked("rmsnorm_rstd", rstd, ref_rstd, {
+            f: out[1] for f, out in faulty.items()})}
+    # cold: copies of x with its strides, > COLD_BYTES of them between
+    # two uses
+    copies = []
+    for _ in range(min(1024, COLD_BYTES // (n * d * x.element_size()) + 2)):
+        c = torch.empty_strided(x.shape, x.stride(), dtype=dt, device=dev)
+        copies.append(c.copy_(x))
+    ms_cold = cold_ms([lambda c=c: rmsnorm_fwd(c, w, save_rstd=save_rstd)
+                       for c in copies])
+    # yardstick: a device copy of the same bytes (x read, y written once)
+    copy_ms_cold = cold_ms([lambda c=c: torch.empty((n, d), dtype=dt,
+                                                    device=dev).copy_(c)
+                            for c in copies])
+    del copies
+    ms = time_ms(fn)
+    b_ms, b_by = bound(2 * n * d * x.element_size() + d * w.element_size()
+                       + (4 * n if save_rstd else 0), 4 * n * d, "fp32")
     op_host, wrapper_host = host_ms_pair(lambda: rmsnorm(x, w),
                                          lambda: rmsnorm_fwd(x, w))
-    return {"case": f"n={n},d={d},bf16", "max_abs_err": err,
-            "tol_used": used, "ok": ok, "controls": ctl,
-            "ms": time_ms(lambda: rmsnorm(x, w)),
+    case = f"n={n},d={d},{'bf16' if dtype == 'bfloat16' else dtype}" + \
+        (f",stride={stride}" if stride else "") + \
+        (",rstd" if save_rstd else "")
+    return {"case": case, **row, "ok": row["ok"] and bitwise,
+            "bitwise_repeat": bitwise,
+            "plan": {k: getattr(plan, k) for k in (
+                "blocks", "warps", "width", "slices")},
+            "ms": ms, "ms_cold": ms_cold, "bound_share": b_ms / ms,
+            "bound_share_cold": b_ms / ms_cold,
             "host_ms": op_host, "host_ms_wrapper": wrapper_host,
-            "plain_ms": time_ms(lambda: rmsnorm_ref(x, w)),
-            "library_ms": (time_ms(lambda: lib(x, (d,), w, 1e-6))
-                           if lib else None),
+            "plain_ms": time_ms(plain),
+            "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w, 1e-6)),
+            "library_covers": "y only (F.rms_norm)",
+            "copy_ms": time_ms(lambda: torch.empty((n, d), dtype=dt,
+                                                   device=dev).copy_(x)),
+            "copy_ms_cold": copy_ms_cold,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -1238,8 +1340,14 @@ def kernel_phase(dev):
     forward at both training steps' shapes (b 2 x 2048)."""
     cases = {"rmsnorm": [], "flash_attention": [],
              "paged_chunk_attention": []}
-    for n in (8, 4096):
-        cases["rmsnorm"].append(check_rmsnorm(dev, n, 3072))
+    # the decode tick, the training step (with rstd), then fp32, rows
+    # 3075 elements apart (2-byte loads) and a d that is not a multiple of 8
+    rm = cases["rmsnorm"]
+    rm.append(check_rmsnorm(dev, 8, 3072))
+    rm.append(check_rmsnorm(dev, 4096, 3072, save_rstd=True))
+    rm.append(check_rmsnorm(dev, 4096, 3072, "float32", save_rstd=True))
+    rm.append(check_rmsnorm(dev, 4096, 3072, stride=3075))
+    rm.append(check_rmsnorm(dev, 4096, 2500))
     for sq in (512, 2048):
         for kv_len in (sq, sq - sq // 8):
             cases["flash_attention"].append(check_flash(dev, sq, kv_len))
@@ -1259,7 +1367,7 @@ def kernel_phase(dev):
                           edges=True))
     hd64 = dict(h=32, kvh=32, d=64)
     for d in (4096, 2048):
-        cases["rmsnorm"].append(check_rmsnorm(dev, 4096, d))
+        rm.append(check_rmsnorm(dev, 4096, d, save_rstd=True))
     for sq in (512, 2048):
         cases["flash_attention"].append(check_flash(dev, sq, sq, **hd64))
     # the training steps' shapes: phi4-mini-3.8b's and zamba2-1.2b's
@@ -1308,6 +1416,61 @@ def _gating_library(x, k, renorm=True):
     return (w / w.sum(-1, keepdim=True) if renorm else w), i
 
 
+# the top-k gating forward kernel's lane groups (topk_gating.cu), emulated
+# in plain torch by ``gating_lane_groups``: the planted fault
+GATE_LANE_FAULT = "the row's last lane ignored"
+
+
+def gating_lane_groups(x, k, renorm, plan, fault=None):
+    """(weights (T, k) fp32, experts (T, k) int32) as the top-k gating
+    forward kernel computes them under ``plan``
+    (``kernels.topk_gating.kernel.gating_plan``): lane j of a row's group
+    of ``plan.lanes`` holds experts j, j + lanes, ... in ``plan.slots``
+    slots, -inf past E; the row max, exp and the sum (each lane its slots
+    in order, then a butterfly over the group), a divide; then k rounds
+    of the largest remaining p, the lower index first among equals, each
+    pick set to NEG_INF; the picks renormalised by max(their sum in round
+    order, 1e-9).  Fault GATE_LANE_FAULT: the group's last lane left out
+    of the row (its logits in neither the max, the sum nor a pick)."""
+    import torch
+    from repro_torch.kernels.topk_gating.ref import NEG_INF
+    T, E = x.shape
+    lanes, slots = plan.lanes, plan.slots
+    col = torch.arange(lanes * slots, device=x.device)
+    xf = torch.full((T, lanes * slots), float("-inf"), device=x.device)
+    xf[:, :E] = x.float()
+    if fault == GATE_LANE_FAULT:
+        xf[:, col % lanes == lanes - 1] = float("-inf")
+    elif fault is not None:
+        raise ValueError(fault)
+    live = xf > float("-inf")
+    ex = torch.where(live, torch.exp(xf - xf.amax(dim=-1, keepdim=True)),
+                     0.0)
+    by_slot = ex.view(T, slots, lanes)      # [t, s, j]: expert j + lanes s
+    acc = by_slot[:, 0]
+    for s in range(1, slots):
+        acc = acc + by_slot[:, s]
+    j = torch.arange(lanes, device=x.device)
+    off = lanes // 2
+    while off:
+        acc = acc + acc[:, j ^ off]
+        off //= 2
+    p = torch.where(live, ex / acc[:, :1], float("-inf"))
+    ws, picks = [], []
+    for _ in range(k):
+        wj, ij = p.max(dim=-1)              # the first maximal index
+        ws.append(wj)
+        picks.append(ij)
+        p = p.scatter(-1, ij[:, None], NEG_INF)
+    w = torch.stack(ws, dim=-1)
+    if renorm:
+        wsum = ws[0]
+        for v in ws[1:]:
+            wsum = wsum + v
+        w = w / torch.clamp(wsum, min=1e-9)[:, None]
+    return w, torch.stack(picks, dim=-1).to(torch.int32)
+
+
 def gating_verdict(w, e, ref_w, ref_e):
     """Experts identical and weights within TOL["topk_gating"]."""
     err, used, ok = compare("topk_gating", w, ref_w)
@@ -1326,13 +1489,19 @@ def check_gating(dev, T, E, k, renorm=True, ties=0, seed=7):
     higher index (tie case), the last expert column ignored; backward
     renorm Jacobian dropped, the c term dropped (renorm=False only: with
     renorm, c = sum(dwr * wr) = 0 in exact arithmetic) and dlogits
-    scattered to index + 1."""
+    scattered to index + 1; and the forward kernel's lane groups with the
+    row's last lane ignored (``gating_lane_groups``).  The forward must
+    repeat bitwise; its host time is taken through the op as serving
+    calls it and through the wrapper, in turn, least of five each."""
     import torch
     from repro_torch.kernels.topk_gating import (topk_gating,
                                                  topk_gating_bwd_ref,
                                                  topk_gating_fwd_ref,
                                                  topk_gating_ref)
-    from repro_torch.kernels.topk_gating.kernel import topk_gating_bwd
+    from repro_torch.kernels.build import sm_count
+    from repro_torch.kernels.topk_gating.kernel import (gating_plan,
+                                                        topk_gating_bwd,
+                                                        topk_gating_fwd)
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(T, E, device=dev, generator=g) * 2
     if ties:
@@ -1340,8 +1509,11 @@ def check_gating(dev, T, E, k, renorm=True, ties=0, seed=7):
         x[ties] = 0.0
     dw = torch.randn(T, k, device=dev, generator=g)
     w, e = topk_gating(x, k=k, renorm=renorm)
+    w2, e2 = topk_gating(x, k=k, renorm=renorm)
     rw, re = topk_gating_fwd_ref(x, k, renorm)
     fwd = gating_verdict(w, e, rw, re)
+    fwd["bitwise_repeat"] = bool(torch.equal(w, w2) and torch.equal(e, e2))
+    fwd["ok"] = fwd["ok"] and fwd["bitwise_repeat"]
     fwd["oracle"] = gating_verdict(w, e, *topk_gating_ref(x, k, renorm))
     if ties:
         want = torch.arange(k, device=dev, dtype=torch.int32)
@@ -1356,6 +1528,15 @@ def check_gating(dev, T, E, k, renorm=True, ties=0, seed=7):
         # highest original one
         fw, fe = topk_gating_fwd_ref(x.flip(-1).contiguous(), k, renorm)
         faults["ties broken to the higher index"] = (fw, E - 1 - fe)
+    # the lane-group fault, where this input can show it (a pick or a
+    # weight of some row changes)
+    lane_fault = gating_lane_groups(x, k, renorm,
+                                    gating_plan(T, E, sm_count(dev)),
+                                    GATE_LANE_FAULT)
+    if gating_verdict(*lane_fault, rw, re)["ok"]:
+        fwd["not_shown"] = [GATE_LANE_FAULT]
+    else:
+        faults[GATE_LANE_FAULT] = lane_fault
     fwd["controls"] = [{"fault": f, **gating_verdict(w, e, *r)}
                        for f, r in faults.items()]
     for c in fwd["controls"]:
@@ -1381,6 +1562,9 @@ def check_gating(dev, T, E, k, renorm=True, ties=0, seed=7):
     case = f"T={T},E={E},k={k},renorm={renorm}" + (f",ties={ties}"
                                                    if ties else "")
     xl = x.clone().requires_grad_()
+    fwd["host_ms"], fwd["host_ms_wrapper"] = host_ms_pair(
+        lambda: topk_gating(x, k=k, renorm=renorm),
+        lambda: topk_gating_fwd(x, k, renorm))
     for rec, fn, plain, lib, (b_ms, b_by) in (
             (fwd, lambda: topk_gating(x, k=k, renorm=renorm),
              lambda: topk_gating_fwd_ref(x, k, renorm),
@@ -1389,7 +1573,9 @@ def check_gating(dev, T, E, k, renorm=True, ties=0, seed=7):
             (bwd, lambda: topk_gating_bwd(x, e, dw, k, renorm),
              lambda: topk_gating_bwd_ref(x, e, dw, k, renorm), None,
              bound(b_bytes, T * E * (6 + k), "fp32"))):
-        rec.update({"case": case, "ms": time_ms(fn), "host_ms": host_ms(fn),
+        if "host_ms" not in rec:
+            rec["host_ms"] = host_ms(fn)
+        rec.update({"case": case, "ms": time_ms(fn),
                     "plain_ms": time_ms(plain),
                     "library_ms": (time_ms(lib) if lib else backward_ms(
                         lambda: _gating_library(xl, k, renorm)[0], (xl,),
@@ -3624,7 +3810,7 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build, rmsnorm
+    from repro_torch.kernels import build
     from repro_torch.telemetry import now
     dev = torch.device("cuda:0")
     failures = []
@@ -3635,9 +3821,6 @@ def main():
 
     t0 = now()
     per = build.build_all()
-    x = torch.ones(2, 3072, device=dev, dtype=torch.bfloat16)
-    rmsnorm.rmsnorm(x, x[0])                       # Triton compiles here
-    torch.cuda.synchronize()
     t_build = now() - t0
     print(f"kernel build: {t_build:.1f} s (nvcc per source: "
           f"{json.dumps({k: round(v, 1) for k, v in per.items()})})",
@@ -3655,6 +3838,13 @@ def main():
                      for fn, line in spilled if re.search(r"<[^,<>]+, 1,", fn)]
     else:
         print("ptxas rmsnorm_bwd: library from the build cache, its ptxas "
+              "lines (spills) not read in this run", flush=True)
+    # the rmsnorm forward: no spill in any instantiation
+    if "rmsnorm_fwd" in build.build_logs:
+        failures += [f"rmsnorm_fwd {fn}: ptxas spills: {line}"
+                     for fn, line in spills(build.build_logs["rmsnorm_fwd"])]
+    else:
+        print("ptxas rmsnorm_fwd: library from the build cache, its ptxas "
               "lines (spills) not read in this run", flush=True)
     # the wgmma kernels: no spill in a fresh build, HGMMA in the SASS; the
     # SSD library also no wgmma that ptxas serializes (C75xx)

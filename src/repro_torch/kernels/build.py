@@ -9,8 +9,12 @@ starts one ``nvcc`` per source, all at once, and waits for them.
 
 Every C entry point takes its pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launch; ``check``
-raises when that is not 0.  A build that fails raises with nvcc's
-output.  Nothing here runs at import time.
+raises when that is not 0.  ``launch`` calls an entry point on
+PyTorch's current stream of a device at the least host cost; an entry
+point on a serving path takes few arguments (ctypes converts each one,
+about a quarter of a microsecond apiece) and reads the rest from a
+descriptor its wrapper builds once for each shape.  A build that fails
+raises with nvcc's output.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ SOURCES = {
     "topk_gating": "topk_gating/csrc/topk_gating.cu",
     "ssd_scan": "ssd_scan/csrc/ssd_scan.cu",
     "quant_comm": "quant_comm/csrc/quant_comm.cu",
+    "rmsnorm_fwd": "rmsnorm/csrc/rmsnorm_fwd.cu",
     "rmsnorm_bwd": "rmsnorm/csrc/rmsnorm_bwd.cu",
 }
 _INCLUDE = _KERNELS / "csrc"
@@ -46,6 +51,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _libs: dict = {}
 build_logs: dict = {}       # kernel name -> nvcc's output (ptxas -v)
 _sms: dict = {}             # device index -> SM count
+_cuda: list = []            # torch's current-device and raw-stream getters
 
 
 def nvcc() -> str:
@@ -116,6 +122,22 @@ def sm_count(device) -> int:
         _sms[device.index] = \
             torch.cuda.get_device_properties(device).multi_processor_count
     return _sms[device.index]
+
+
+def launch(fn, index, *args):
+    """``fn(*args, stream)`` with ``stream`` PyTorch's current stream on
+    CUDA device ``index``, made the current device for the call only when
+    it is not already (the usual case costs two calls into PyTorch: no
+    context manager, no ``Stream`` object)."""
+    if not _cuda:
+        from torch._C import _cuda_getCurrentRawStream, _cuda_getDevice
+        _cuda.extend((_cuda_getDevice, _cuda_getCurrentRawStream))
+    current, raw_stream = _cuda
+    if current() == index:
+        return fn(*args, raw_stream(index))
+    import torch
+    with torch.cuda.device(index):
+        return fn(*args, raw_stream(index))
 
 
 def check(err: int, what: str) -> None:

@@ -7,11 +7,12 @@ impl: "auto" | "ref".
   its forward keeps the per-row rstd and saves (x, w, rstd); its
   backward returns dx in x's dtype and dw in w's dtype.  Without a
   gradient to take (serving) the forward runs alone, y only, with no
-  Function around it.  On CUDA tensors the forward is a Triton kernel
-  and the backward one CUDA kernel for dx and dw together
-  (``kernel.rmsnorm_bwd``) — a CUDA tensor launches them or raises,
-  never the plain path; on CPU tensors the same code runs the plain
-  forward and the plain backward functions.
+  Function around it, and a CUDA tensor goes to the kernel's wrapper
+  in the fewest Python steps.  On CUDA tensors the forward is one CUDA
+  kernel (``kernel.rmsnorm_fwd``) and the backward one CUDA kernel for
+  dx and dw together (``kernel.rmsnorm_bwd``) — a CUDA tensor launches
+  them or raises, never the plain path; on CPU tensors the same code
+  runs the plain forward and the plain backward functions.
 - "ref" runs the plain forward on any device and leaves its gradient to
   autograd: the independent plain path the kernels are held against.
 """
@@ -52,6 +53,12 @@ class RMSNorm(torch.autograd.Function):
 
 def rmsnorm(x, w, *, eps=1e-6, impl="auto"):
     """x (..., d); w (d,) -> rmsnorm(x) * w in x.dtype."""
+    if impl == "auto" and x.is_cuda and not (
+            (x.requires_grad or w.requires_grad) and torch.is_grad_enabled()):
+        if x.dim() == 2:                   # serving: straight to the kernel
+            return rmsnorm_fwd(x, w, eps=eps)
+        return rmsnorm_fwd(x.reshape(-1, x.shape[-1]), w,
+                           eps=eps).view(x.shape)
     if impl == "ref":
         return rmsnorm_ref(x, w, eps)
     if impl != "auto":
@@ -60,8 +67,6 @@ def rmsnorm(x, w, *, eps=1e-6, impl="auto"):
     x = x.reshape(-1, shape[-1])
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         y = RMSNorm.apply(x, w, eps)
-    elif x.is_cuda:
-        y = rmsnorm_fwd(x, w, eps=eps)
     else:
         y = rmsnorm_ref(x, w, eps)
     return y.reshape(shape)

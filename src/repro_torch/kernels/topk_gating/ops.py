@@ -8,10 +8,11 @@ impl: "auto" | "ref".
   Its forward saves (logits, experts) only, ``experts`` is marked
   non-differentiable, and its backward emits dlogits in one pass from
   the weights' cotangent.  Without a gradient to take (serving) the
-  forward runs alone, with no Function around it.  On CUDA tensors the
-  forward and the backward are kernels — a CUDA tensor launches them or
-  raises, never the plain path; on CPU tensors the same code runs the
-  plain forward and the plain backward functions.
+  forward runs alone, with no Function around it, and a CUDA tensor
+  goes to the kernel's wrapper in the fewest Python steps.  On CUDA
+  tensors the forward and the backward are kernels — a CUDA tensor
+  launches them or raises, never the plain path; on CPU tensors the
+  same code runs the plain forward and the plain backward functions.
 - "ref" runs the JAX oracle's plain version on any device and leaves
   its gradient to autograd.
 
@@ -53,11 +54,13 @@ def topk_gating(logits, *, k: int, renorm=True, impl="auto"):
     """logits (T, E) -> (weights (T, k) fp32, experts (T, k) int32): the
     k most probable experts of softmax(logits) (the lower index first
     among equals), weights renormalised to sum 1 with ``renorm``."""
+    if impl == "auto" and logits.is_cuda and not (
+            logits.requires_grad and torch.is_grad_enabled()):
+        return topk_gating_fwd(logits, k, renorm)  # serving: the kernel
     if impl == "ref":
         return topk_gating_ref(logits, k, renorm)
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r}")
     if torch.is_grad_enabled() and logits.requires_grad:
         return TopKGating.apply(logits, k, renorm)
-    fwd = topk_gating_fwd if logits.is_cuda else topk_gating_fwd_ref
-    return fwd(logits, k, renorm)
+    return topk_gating_fwd_ref(logits, k, renorm)

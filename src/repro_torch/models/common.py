@@ -20,7 +20,7 @@ def norm_defs(cfg, name="norm"):
 
 def apply_norm(cfg, params, x, name="norm"):
     """Stats in fp32.  rmsnorm goes through ``kernels.rmsnorm`` under
-    ``cfg.norm_impl``: on a CUDA tensor every call launches the Triton
+    ``cfg.norm_impl``: on a CUDA tensor every call launches the CUDA
     kernel, one-token decode included.  (The JAX package keeps T = 1 on
     its inline path to avoid a ``pallas_call`` per token; here the
     inline PyTorch version is itself five or more launches, so the one

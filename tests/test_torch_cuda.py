@@ -19,12 +19,36 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_rmsnorm_kernel_matches_plain_on_card(cuda):
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
-    x = torch.randn(37, 3072, device=cuda, dtype=torch.bfloat16)
-    w = torch.randn(3072, device=cuda, dtype=torch.bfloat16)
-    torch.testing.assert_close(rmsnorm(x, w), rmsnorm_ref(x, w), atol=2e-2,
-                               rtol=2e-2)
+@pytest.mark.parametrize("n,d,dtype,stride,save_rstd", [
+    (37, 3072, torch.bfloat16, None, False),
+    (8, 3072, torch.bfloat16, None, False),       # a decode tick
+    (4096, 3072, torch.bfloat16, None, True),     # phi4's training step
+    (300, 2048, torch.float32, None, True),       # fp32
+    (37, 3072, torch.bfloat16, 3075, False),      # rows 3075 apart
+    (64, 2500, torch.bfloat16, 2504, True)])      # d not a multiple of 8
+def test_rmsnorm_kernel_matches_plain_on_card(cuda, n, d, dtype, stride,
+                                              save_rstd):
+    """The forward kernel (through the op, or the wrapper with rstd)
+    against the plain forward: y within 2e-2, rstd within 1e-5 relative;
+    two launches give the same bits, each counted once."""
+    from repro_torch.kernels.rmsnorm import (LAUNCHES, rmsnorm,
+                                             rmsnorm_fwd_ref, rmsnorm_ref)
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd
+    x = torch.randn(n, stride or d, device=cuda, dtype=dtype)[:, :d]
+    w = torch.randn(d, device=cuda, dtype=dtype)
+    before = LAUNCHES.value
+    if save_rstd:
+        (y, rstd), (y2, rstd2) = (rmsnorm_fwd(x, w, save_rstd=True)
+                                  for _ in range(2))
+        ref_y, ref_rstd = rmsnorm_fwd_ref(x, w)
+        torch.testing.assert_close(rstd, ref_rstd, atol=0, rtol=1e-5)
+        assert torch.equal(rstd, rstd2)
+    else:
+        y, y2 = rmsnorm(x, w), rmsnorm(x, w)
+        ref_y = rmsnorm_ref(x, w)
+    assert LAUNCHES.value == before + 2
+    torch.testing.assert_close(y, ref_y, atol=2e-2, rtol=2e-2)
+    assert torch.equal(y, y2)
 
 
 @pytest.mark.cuda
@@ -335,6 +359,22 @@ def test_topk_gating_kernels_match_plain_on_card(cuda, T, E, k, renorm,
         assert gb.dtype == torch.bfloat16
         torch.testing.assert_close(gb.float(), topk_gating_bwd_ref(
             xb, eb, dw, k).float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,E,k,ties", [(4096, 60, 4, 0), (1024, 60, 4, 3),
+                                       (4096, 128, 8, 0)])
+def test_topk_gating_forward_kernel_repeats_bitwise(cuda, T, E, k, ties):
+    """Two launches of the forward kernel give the same weights and
+    experts bit for bit (the lane group's sum in a fixed order), tie rows
+    included, and the experts of the plain forward."""
+    from repro_torch.kernels.topk_gating import topk_gating_fwd_ref
+    from repro_torch.kernels.topk_gating.kernel import topk_gating_fwd
+    x = _gating_logits(T, E, cuda, tie_rows=ties)
+    w1, e1 = topk_gating_fwd(x, k)
+    w2, e2 = topk_gating_fwd(x, k)
+    assert torch.equal(w1, w2) and torch.equal(e1, e2)
+    assert torch.equal(e1, topk_gating_fwd_ref(x, k)[1])
 
 
 def _ssd_inputs(b, l, h, c, dtype, device, p=64, n=64):
