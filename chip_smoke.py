@@ -14,7 +14,7 @@ Phases (any failure exits non-zero and prints no result line):
    freshly built one spill, nor ptxas serialize a wgmma of the SSD library, nor
    the fused rmsnorm backward spill at one slice a thread, the
    instantiations of every width up to 4096 in bf16, nor any
-   instantiation of the rmsnorm forward).
+   instantiation of the rmsnorm forward or of the top-k gating kernels).
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card, at the shapes phi4-mini-3.8b's serving and training
    paths give it, with its time, the plain version's time, one PyTorch
@@ -118,9 +118,12 @@ Phases (any failure exits non-zero and prints no result line):
 
 The kernel cases of phase 2 include both top-k gating kernels at the
 MoE shapes (qwen2-moe's decode, prefill and training rows, 64 experts
-top-6, 128 top-8, no renorm, tie rows) with planted faults (among them
-the forward's lane groups emulated by ``gating_lane_groups`` with the
-row's last lane ignored), the forward repeating bitwise, both SSD
+top-6, 128 top-8, no renorm, tie rows, bf16 logits) with planted faults
+(among them the lane groups emulated by ``gating_lane_groups`` with the
+row's last lane ignored and by ``gating_bwd_lane_groups`` with a pick's
+dw taken from the neighbouring lane), both repeating bitwise, the
+backward timed warm and cold beside a device copy of the same bytes
+(phase 1 fails on a ptxas spill in the gating library), both SSD
 chunk-scan kernels at zamba2's shapes (the training step, prefills of
 1024, 200 and 768 tokens, one fp32 case, a 777-token prompt through
 the padding wrapper) with planted faults (the carried state dropped,
@@ -184,6 +187,10 @@ TOL = {"rmsnorm": (1e-2, 1e-2), "flash_attention": (1e-2, 1e-2),
        # the same arithmetic (accurate expf, a divide by the row sum) with
        # sums in another order; experts must be identical
        "topk_gating": (1e-6, 0.0), "topk_gating_bwd": (1e-6, 1e-5),
+       # bf16 logits: both sides compute in fp32 from the same bf16 logits
+       # and round dlogits to bf16 once, so an element lands at most one
+       # bf16 neighbour away (2^-7 relative at most)
+       "topk_gating_bwd_bf16": (1e-6, 2.0 ** -7),
        # the flash kernel sums P after rounding it to bf16 (its l is the
        # normaliser of the P that multiplies V), each term within 2^-9
        # relative, so its lse lies within log(1 + 2^-9) = 1.95e-3
@@ -1416,9 +1423,52 @@ def _gating_library(x, k, renorm=True):
     return (w / w.sum(-1, keepdim=True) if renorm else w), i
 
 
-# the top-k gating forward kernel's lane groups (topk_gating.cu), emulated
-# in plain torch by ``gating_lane_groups``: the planted fault
+# the top-k gating kernels' lane groups (topk_gating.cu), emulated in plain
+# torch by ``gating_lane_groups`` (forward) and ``gating_bwd_lane_groups``
+# (backward): their planted faults
 GATE_LANE_FAULT = "the row's last lane ignored"
+GATE_BWD_LANE_FAULT = "a pick's dw taken from the neighbouring lane"
+
+
+def _lane_sum(acc):
+    """The kernels' xor butterfly over a row's group of lanes: acc (T,
+    lanes) -> (T,), lane j adding lane j ^ off for off = lanes / 2 .. 1
+    (every lane ends with the same bits: lane 0's)."""
+    import torch
+    lanes = acc.shape[1]
+    j = torch.arange(lanes, device=acc.device)
+    off = lanes // 2
+    while off:
+        acc = acc + acc[:, j ^ off]
+        off //= 2
+    return acc[:, 0]
+
+
+def _lane_softmax(xf, plan):
+    """(p, live) as both gating kernels compute p over a row's lane group
+    under ``plan``: xf (T, lanes * slots) fp32 holds expert e in column e,
+    -inf where no logit is (live False); lane j holds experts j, j +
+    lanes, ...; the row max, exp and the sum (each lane its slots in
+    order, then ``_lane_sum``), a divide; p 0 where not live."""
+    import torch
+    T = xf.shape[0]
+    live = xf > float("-inf")
+    ex = torch.where(live, torch.exp(xf - xf.amax(dim=-1, keepdim=True)),
+                     0.0)
+    by_slot = ex.view(T, plan.slots, plan.lanes)   # [t, s, j]: j + lanes s
+    acc = by_slot[:, 0]
+    for s in range(1, plan.slots):
+        acc = acc + by_slot[:, s]
+    return torch.where(live, ex / _lane_sum(acc)[:, None], 0.0), live
+
+
+def _padded_logits(x, plan):
+    import torch
+    T, E = x.shape
+    xf = torch.full((T, plan.lanes * plan.slots), float("-inf"),
+                    device=x.device)
+    xf[:, :E] = x.float()
+    return xf
 
 
 def gating_lane_groups(x, k, renorm, plan, fault=None):
@@ -1426,36 +1476,22 @@ def gating_lane_groups(x, k, renorm, plan, fault=None):
     forward kernel computes them under ``plan``
     (``kernels.topk_gating.kernel.gating_plan``): lane j of a row's group
     of ``plan.lanes`` holds experts j, j + lanes, ... in ``plan.slots``
-    slots, -inf past E; the row max, exp and the sum (each lane its slots
-    in order, then a butterfly over the group), a divide; then k rounds
+    slots, -inf past E; p by ``_lane_softmax``; then k rounds
     of the largest remaining p, the lower index first among equals, each
     pick set to NEG_INF; the picks renormalised by max(their sum in round
     order, 1e-9).  Fault GATE_LANE_FAULT: the group's last lane left out
     of the row (its logits in neither the max, the sum nor a pick)."""
     import torch
     from repro_torch.kernels.topk_gating.ref import NEG_INF
-    T, E = x.shape
-    lanes, slots = plan.lanes, plan.slots
-    col = torch.arange(lanes * slots, device=x.device)
-    xf = torch.full((T, lanes * slots), float("-inf"), device=x.device)
-    xf[:, :E] = x.float()
+    lanes = plan.lanes
+    xf = _padded_logits(x, plan)
     if fault == GATE_LANE_FAULT:
+        col = torch.arange(xf.shape[1], device=x.device)
         xf[:, col % lanes == lanes - 1] = float("-inf")
     elif fault is not None:
         raise ValueError(fault)
-    live = xf > float("-inf")
-    ex = torch.where(live, torch.exp(xf - xf.amax(dim=-1, keepdim=True)),
-                     0.0)
-    by_slot = ex.view(T, slots, lanes)      # [t, s, j]: expert j + lanes s
-    acc = by_slot[:, 0]
-    for s in range(1, slots):
-        acc = acc + by_slot[:, s]
-    j = torch.arange(lanes, device=x.device)
-    off = lanes // 2
-    while off:
-        acc = acc + acc[:, j ^ off]
-        off //= 2
-    p = torch.where(live, ex / acc[:, :1], float("-inf"))
+    p, live = _lane_softmax(xf, plan)
+    p = torch.where(live, p, float("-inf"))
     ws, picks = [], []
     for _ in range(k):
         wj, ij = p.max(dim=-1)              # the first maximal index
@@ -1471,6 +1507,47 @@ def gating_lane_groups(x, k, renorm, plan, fault=None):
     return w, torch.stack(picks, dim=-1).to(torch.int32)
 
 
+def gating_bwd_lane_groups(x, experts, dw, k, renorm, plan, fault=None):
+    """dlogits (T, E) in x's dtype as the top-k gating backward kernel
+    computes it under ``plan`` (``gating_plan(..., backward=True)``, or
+    any plan of the forward's lane groups): p by
+    ``_lane_softmax``; lane j < k holds pick j (expert, dw, and wr =
+    p[expert], 0 for an expert outside [0, E)), lanes >= k hold 0; each
+    sum over the picks a ``_lane_sum``: with renorm S = max(sum wr,
+    1e-9), dot = sum(dw (wr / S)), dwr = (dw - dot) / S, c = sum(dwr
+    wr), without it dwr = dw and c = sum(dw wr); dp[e] the sum of dwr
+    over the picks of e in pick order; dlogits = p (dp - c).  Fault
+    GATE_BWD_LANE_FAULT: lane j takes lane j + 1's dw (the last pick's
+    lane reads a lane with no pick: 0)."""
+    import torch
+    T, E = x.shape
+    lanes = plan.lanes
+    p, _ = _lane_softmax(_padded_logits(x, plan), plan)
+    p = p[:, :E]
+    pick = experts.long()
+    valid = (pick >= 0) & (pick < E)
+    g = dw.float()
+    if fault == GATE_BWD_LANE_FAULT:
+        g = torch.cat([g[:, 1:], torch.zeros_like(g[:, :1])], dim=-1)
+    elif fault is not None:
+        raise ValueError(fault)
+    wr = torch.where(valid, torch.gather(p, -1, pick.clamp(0, E - 1)), 0.0)
+
+    def pick_sum(v):                        # (T, k) -> (T, 1)
+        lane = torch.zeros(T, lanes, device=x.device)
+        lane[:, :k] = v
+        return _lane_sum(lane)[:, None]
+    if renorm:
+        S = torch.clamp(pick_sum(wr), min=1e-9)
+        dwr = (g - pick_sum(g * (wr / S))) / S
+    else:
+        dwr = g
+    c = pick_sum(dwr * wr)
+    dp = torch.zeros(T, E + 1, device=x.device).scatter_add_(
+        -1, torch.where(valid, pick, E), dwr)[:, :E]
+    return (p * (dp - c)).to(x.dtype)
+
+
 def gating_verdict(w, e, ref_w, ref_e):
     """Experts identical and weights within TOL["topk_gating"]."""
     err, used, ok = compare("topk_gating", w, ref_w)
@@ -1479,20 +1556,29 @@ def gating_verdict(w, e, ref_w, ref_e):
             "experts_mismatch_rows": mism, "ok": ok and mism == 0}
 
 
-def check_gating(dev, T, E, k, renorm=True, ties=0, seed=7):
-    """Forward and backward kernel against their plain versions on fp32
-    logits (T, E): experts identical, weights within 1e-6, dlogits within
-    (1e-6, 1e-5) of the plain backward and of autograd through the plain
-    forward.  ``ties`` > 0 makes that many rows all-equal (and the next
-    all-zero): their experts must be 0..k-1.  Planted faults, where the
-    input can show them: forward renorm skipped, ties broken to the
-    higher index (tie case), the last expert column ignored; backward
-    renorm Jacobian dropped, the c term dropped (renorm=False only: with
-    renorm, c = sum(dwr * wr) = 0 in exact arithmetic) and dlogits
-    scattered to index + 1; and the forward kernel's lane groups with the
-    row's last lane ignored (``gating_lane_groups``).  The forward must
-    repeat bitwise; its host time is taken through the op as serving
-    calls it and through the wrapper, in turn, least of five each."""
+def check_gating(dev, T, E, k, renorm=True, ties=0, seed=7,
+                 dtype="float32"):
+    """Forward and backward kernel against their plain versions on logits
+    (T, E) of ``dtype``: experts identical, weights within 1e-6, dlogits
+    within TOL["topk_gating_bwd"] (bf16: TOL["topk_gating_bwd_bf16"]) of
+    the plain backward and of autograd through the plain forward.
+    ``ties`` > 0 makes that many rows all-equal (and the next all-zero):
+    their experts must be 0..k-1.  Planted faults, where the input can
+    show them: forward renorm skipped, ties broken to the higher index
+    (tie case), the last expert column ignored, and the forward kernel's
+    lane groups with the row's last lane ignored (``gating_lane_groups``);
+    backward renorm Jacobian dropped, the c term dropped (renorm=False
+    only: with renorm, c = sum(dwr * wr) = 0 in exact arithmetic),
+    dlogits scattered to index + 1, and the backward kernel's lane groups
+    with a pick's dw taken from the neighbouring lane
+    (``gating_bwd_lane_groups``).  Both kernels must repeat bitwise.  Host
+    time: the forward through the op as serving calls it and through the
+    wrapper, in turn, least of five each; the backward through its
+    wrapper, least of five.  The backward is also timed cold (``ms_cold``:
+    each call on its own copy of the inputs, > 64 MB of them between two
+    uses) beside a device copy of the same bytes, warm and cold, and run
+    under the forward's lane groups too (``forward_layout``: within the
+    gate, timed beside its own plan)."""
     import torch
     from repro_torch.kernels.topk_gating import (topk_gating,
                                                  topk_gating_bwd_ref,
@@ -1507,7 +1593,9 @@ def check_gating(dev, T, E, k, renorm=True, ties=0, seed=7):
     if ties:
         x[:ties] = 0.7
         x[ties] = 0.0
+    x = x.to(getattr(torch, dtype))
     dw = torch.randn(T, k, device=dev, generator=g)
+    fwd_plan = gating_plan(T, E, sm_count(dev))
     w, e = topk_gating(x, k=k, renorm=renorm)
     w2, e2 = topk_gating(x, k=k, renorm=renorm)
     rw, re = topk_gating_fwd_ref(x, k, renorm)
@@ -1530,9 +1618,7 @@ def check_gating(dev, T, E, k, renorm=True, ties=0, seed=7):
         faults["ties broken to the higher index"] = (fw, E - 1 - fe)
     # the lane-group fault, where this input can show it (a pick or a
     # weight of some row changes)
-    lane_fault = gating_lane_groups(x, k, renorm,
-                                    gating_plan(T, E, sm_count(dev)),
-                                    GATE_LANE_FAULT)
+    lane_fault = gating_lane_groups(x, k, renorm, fwd_plan, GATE_LANE_FAULT)
     if gating_verdict(*lane_fault, rw, re)["ok"]:
         fwd["not_shown"] = [GATE_LANE_FAULT]
     else:
@@ -1542,39 +1628,70 @@ def check_gating(dev, T, E, k, renorm=True, ties=0, seed=7):
     for c in fwd["controls"]:
         c["caught"] = not c.pop("ok")
 
+    tol = "topk_gating_bwd" + ("_bf16" if dtype == "bfloat16" else "")
     dl = topk_gating_bwd(x, e, dw, k, renorm)
-    err, used, ok = compare("topk_gating_bwd", dl,
-                            topk_gating_bwd_ref(x, e, dw, k, renorm))
+    dl2 = topk_gating_bwd(x, e, dw, k, renorm)
+    ref = topk_gating_bwd_ref(x, e, dw, k, renorm)
+    err, used, ok = compare(tol, dl, ref)
     xr = x.clone().requires_grad_()
     auto = torch.autograd.grad(topk_gating_ref(xr, k, renorm)[0], xr, dw)[0]
-    a_err, a_used, a_ok = compare("topk_gating_bwd", dl, auto)
-    bfaults = ["scattered to index + 1"]
-    bfaults += ["renorm Jacobian dropped"] if renorm else ["c term dropped"]
-    bwd = {"max_abs_err": err, "tol_used": used, "ok": ok and a_ok,
+    a_err, a_used, a_ok = compare(tol, dl, auto)
+    bitwise = bool(torch.equal(dl, dl2))
+    plan = gating_plan(T, E, backward=True)
+    bfaults = {f: _gating_bwd_faulty(x, e, dw, renorm, f) for f in (
+        ["scattered to index + 1"] +
+        (["renorm Jacobian dropped"] if renorm else ["c term dropped"]))}
+    bwd = {"max_abs_err": err, "tol_used": used,
+           "ok": ok and a_ok and bitwise, "bitwise_repeat": bitwise,
            "vs_autograd": {"max_abs_err": a_err, "tol_used": a_used,
                            "ok": a_ok},
-           "controls": controls("topk_gating_bwd", dl, {
-               f: _gating_bwd_faulty(x, e, dw, renorm, f)
-               for f in bfaults})}
-    # bounds: the logits read, the outputs written, once each
-    f_bytes = T * E * 4 + T * k * 8
-    b_bytes = 2 * T * E * 4 + T * k * 8
-    case = f"T={T},E={E},k={k},renorm={renorm}" + (f",ties={ties}"
-                                                   if ties else "")
+           "plan": plan._asdict()}
+    # the backward's lane-group fault, where this input can show it
+    lane_fault = gating_bwd_lane_groups(x, e, dw, k, renorm, plan,
+                                        GATE_BWD_LANE_FAULT)
+    if compare(tol, lane_fault, ref)[2]:
+        bwd["not_shown"] = [GATE_BWD_LANE_FAULT]
+    else:
+        bfaults[GATE_BWD_LANE_FAULT] = lane_fault
+    bwd["controls"] = controls(tol, dl, bfaults)
+    # bounds: the inputs read, the outputs written, once each (the
+    # forward's bytes are also the backward's input bytes)
+    es = x.element_size()
+    f_bytes = T * E * es + T * k * 8
+    b_bytes = f_bytes + T * E * es
+    case = f"T={T},E={E},k={k},renorm={renorm}" + (
+        f",ties={ties}" if ties else "") + (
+        ",bf16" if dtype == "bfloat16" else "")
     xl = x.clone().requires_grad_()
     fwd["host_ms"], fwd["host_ms_wrapper"] = host_ms_pair(
         lambda: topk_gating(x, k=k, renorm=renorm),
         lambda: topk_gating_fwd(x, k, renorm))
+    bwd_fn = lambda: topk_gating_bwd(x, e, dw, k, renorm)  # noqa: E731
+    bwd["host_ms"] = bwd["host_ms_wrapper"] = min(
+        host_ms(bwd_fn) for _ in range(5))
+    # cold: copies of the backward's inputs, > COLD_BYTES of them between
+    # two uses; yardstick: a device copy that moves the same bytes (half
+    # of them read, half written), warm and cold
+    copies = [(x.clone(), e.clone(), dw.clone()) for _ in range(
+        min(1024, COLD_BYTES // f_bytes + 2))]
+    bwd["ms_cold"] = cold_ms([
+        lambda c=c: topk_gating_bwd(*c, k, renorm) for c in copies])
+    del copies
+    half = -(-b_bytes // 8)
+    srcs = [torch.randn(half, device=dev) for _ in range(
+        min(1024, COLD_BYTES // (4 * half) + 2))]
+    bwd["copy_ms"] = time_ms(lambda: torch.empty_like(srcs[0]).copy_(srcs[0]))
+    bwd["copy_ms_cold"] = cold_ms([
+        lambda c=c: torch.empty_like(c).copy_(c) for c in srcs])
+    del srcs
     for rec, fn, plain, lib, (b_ms, b_by) in (
             (fwd, lambda: topk_gating(x, k=k, renorm=renorm),
              lambda: topk_gating_fwd_ref(x, k, renorm),
              lambda: _gating_library(x, k, renorm),
              bound(f_bytes, T * E * (4 + 2 * k), "fp32")),
-            (bwd, lambda: topk_gating_bwd(x, e, dw, k, renorm),
+            (bwd, bwd_fn,
              lambda: topk_gating_bwd_ref(x, e, dw, k, renorm), None,
              bound(b_bytes, T * E * (6 + k), "fp32"))):
-        if "host_ms" not in rec:
-            rec["host_ms"] = host_ms(fn)
         rec.update({"case": case, "ms": time_ms(fn),
                     "plain_ms": time_ms(plain),
                     "library_ms": (time_ms(lib) if lib else backward_ms(
@@ -1586,7 +1703,38 @@ def check_gating(dev, T, E, k, renorm=True, ties=0, seed=7):
                         "autograd of torch.softmax -> torch.topk -> "
                         "divide"),
                     "bound_ms": b_ms, "bound_by": b_by})
+    bwd["bound_share"] = bwd["bound_ms"] / bwd["ms"]
+    bwd["bound_share_cold"] = bwd["bound_ms"] / bwd["ms_cold"]
+    # the backward kernel under the forward's lane groups (16 lanes a row
+    # at T 4096), the layout its plan passes over: within the gate, and
+    # its time beside the plan's
+    fwd_layout = _gating_bwd_in_layout(x, e, dw, k, renorm)
+    bwd["forward_layout"] = {
+        "plan": fwd_plan._asdict(),
+        "ok": compare(tol, fwd_layout(), ref)[2], "ms": time_ms(fwd_layout)}
+    bwd["ok"] = bwd["ok"] and bwd["forward_layout"]["ok"]
     return {"topk_gating": fwd, "topk_gating_bwd": bwd}
+
+
+def _gating_bwd_in_layout(x, e, dw, k, renorm):
+    """A call of the top-k gating backward kernel under the forward's
+    launch descriptor (its plan's lane groups) in place of the
+    backward's own."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.topk_gating import kernel
+    T, E = x.shape
+    config = kernel._fwd_config(T, E, k, renorm, kernel._DTYPES[x.dtype],
+                                build.sm_count(x.device))[0]
+
+    def call():
+        out = torch.empty_like(x)
+        build.check(build.launch(
+            kernel._fn("topk_gating_bwd"), x.device.index, x.data_ptr(),
+            e.data_ptr(), dw.data_ptr(), out.data_ptr(), config),
+            "topk_gating_bwd (forward layout)")
+        return out
+    return call
 
 
 # the first forward case is the decode tick, the first backward case the
@@ -1595,14 +1743,16 @@ GATING_CASES = [dict(T=8, E=60, k=4), dict(T=4096, E=60, k=4),
                 dict(T=1024, E=60, k=4), dict(T=4096, E=64, k=6),
                 dict(T=4096, E=128, k=8),
                 dict(T=4096, E=60, k=4, renorm=False),
-                dict(T=1024, E=60, k=4, ties=3)]
+                dict(T=1024, E=60, k=4, ties=3),
+                dict(T=4096, E=60, k=4, dtype="bfloat16")]
 
 
 def gating_phase(dev):
     """Both top-k gating kernels at the MoE path's shapes: qwen2-moe's
     training step (4096 x 60, top-4), decode tick (8 rows) and prefill
     bucket (1024), deepseekmoe-16b's (64 experts, top-6) and qwen3-moe's
-    (128, top-8) gating, one case without renorm and one with tie rows."""
+    (128, top-8) gating, one case without renorm, one with tie rows and
+    the training step on bf16 logits."""
     cases = {"topk_gating": [], "topk_gating_bwd": []}
     for kw in GATING_CASES:
         for name, row in check_gating(dev, **kw).items():
@@ -3839,13 +3989,15 @@ def main():
     else:
         print("ptxas rmsnorm_bwd: library from the build cache, its ptxas "
               "lines (spills) not read in this run", flush=True)
-    # the rmsnorm forward: no spill in any instantiation
-    if "rmsnorm_fwd" in build.build_logs:
-        failures += [f"rmsnorm_fwd {fn}: ptxas spills: {line}"
-                     for fn, line in spills(build.build_logs["rmsnorm_fwd"])]
-    else:
-        print("ptxas rmsnorm_fwd: library from the build cache, its ptxas "
-              "lines (spills) not read in this run", flush=True)
+    # the rmsnorm forward and the top-k gating kernels: no spill in any
+    # instantiation
+    for lib in ("rmsnorm_fwd", "topk_gating"):
+        if lib in build.build_logs:
+            failures += [f"{lib} {fn}: ptxas spills: {line}"
+                         for fn, line in spills(build.build_logs[lib])]
+        else:
+            print(f"ptxas {lib}: library from the build cache, its ptxas "
+                  "lines (spills) not read in this run", flush=True)
     # the wgmma kernels: no spill in a fresh build, HGMMA in the SASS; the
     # SSD library also no wgmma that ptxas serializes (C75xx)
     for lib in ("flash_attention", "flash_attention_bwd",

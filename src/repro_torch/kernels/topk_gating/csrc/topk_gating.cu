@@ -14,7 +14,8 @@
 // S = max(sum wr, 1e-9), wn = wr / S, dwr = (dw - sum(dw * wn)) / S
 // (dwr = dw without renorm), c = sum(dwr * wr) and
 // dlogits[e] = p[e] * (dp[e] - c) with dp[e] = sum_j dwr[j] [experts[j] = e],
-// written in the dtype of the logits.
+// written in the dtype of the logits.  An expert index outside [0, E)
+// contributes nothing.
 //
 // What bounds it on the H100: a row reads E * 4 bytes and writes k * 8
 // (forward) or E * 4 (backward) and does O(k * E) comparisons, far below
@@ -22,35 +23,53 @@
 // (T <= 4096 rows of E = 60) that is well under a microsecond, and the
 // launch and the chain of dependent steps within a row set the time.
 //
-// The forward: a group of L lanes a row (L = 32 or 16, from T and the SM
-// count: kernel.py:gating_plan), lane j of the group holding experts j,
-// j + L, j + 2L, ... in SLOTS registers (2 or 4 at L 32, 4 or 8 at L 16;
-// slots past E hold -inf and never win).  The row max, the sum and each
-// round's argmax are straight-line code over the lane's slots, then
-// log2(L) xor-shuffle steps across the group, after which every lane of
-// the group holds the same bits.  The sum is taken in a fixed order (each
-// lane its slots in order, then the butterfly), so the outputs are the
-// same from run to run.  The argmax reduces (value, index) pairs under one
-// total order (larger value first, then lower index), so ties resolve
-// exactly as the TPU kernel's argmax does.  The k rounds are a loop, not
-// unrolled: the kernel's time is latency (a launch and a chain of
-// dependent steps a row), and a short kernel also loads its code sooner.
-// 256-thread blocks of 256 / L rows.  Measured against 4 and 8 lanes a
-// row (more logits a lane, longer in-lane chains of expf, divides and
-// compares): 32 lanes are the fastest at few rows, 16 at T 4096.
+// Both kernels share one layout: a group of L lanes a row, lane j of the
+// group holding experts j, j + L, j + 2L, ... in SLOTS registers (2 or 4
+// at L 32, 4 or 8 at L 16; slots past E hold -inf in the forward, 0 in the
+// backward).  The row max and the sum are straight-line code over the
+// lane's slots, then log2(L) xor-shuffle steps across the group, after
+// which every lane of the group holds the same bits.  Sums are taken in a
+// fixed order (each lane its slots in order, then the butterfly), so the
+// outputs are the same from run to run.  256-thread blocks of 256 / L
+// rows.  L comes from kernel.py:gating_plan.  The forward: 32 lanes at few
+// rows, 16 at T 4096 (measured against 4 and 8 lanes a row too, whose
+// longer in-lane chains of expf, divides and compares were slower; each of
+// its k argmax rounds takes log2(L) shuffle steps).  The backward: 32
+// lanes at every T (it has no rounds, and fewer slots a lane shorten its
+// chain; chip_smoke.py times it under the forward's layout beside its
+// own).
 //
-// The backward: one warp per row, each lane holding the experts lane,
-// lane + 32, lane + 64 and lane + 96 (E <= 128), the max and the sum
-// reduced across the warp with shuffles.
+// The forward's argmax reduces (value, index) pairs under one total order
+// (larger value first, then lower index), so ties resolve exactly as the
+// TPU kernel's argmax does.  The k rounds are a loop, not unrolled: the
+// kernel's time is latency (a launch and a chain of dependent steps a
+// row), and a short kernel also loads its code sooner.
+//
+// The backward keeps its chain short:
+// - One round trip to memory.  The row's logits, and in lane j < k pick
+//   j's expert and dw (one coalesced load each across the k lanes), are
+//   all issued before anything waits on them.
+// - wr of pick j lives in lane j: one shuffle per slot from the lane that
+//   holds the pick's expert, the slot chosen on arrival.
+// - The row's sums S, sum(dw * wn) and c as the formula writes them, each
+//   a butterfly over the group (lanes >= k add 0), log2(L) steps.  Their
+//   products are rounded on their own (__fmul_rn), so no lane fuses its
+//   term into a multiply-add and every lane keeps the same bits.  (One
+//   paired butterfly with c by the identity c = (sum(dw wr) - dot sum(wr))
+//   / S, or sums straight-line over k in every lane, measured no faster
+//   on the H100, and rounded further from the plain backward.)
+// - dp from k broadcasts of (expert, dwr), four at a time, each matched
+//   against the lane's slots; lanes >= k hold no expert (-1), so the
+//   padding of the last four matches nothing.
 // Nothing is staged in shared memory; rows need no padding.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 4;            // rows per block
-constexpr int kSlots = 4;            // logits per lane: E <= 32 * kSlots
-constexpr int kMaxK = 16;
+constexpr int kThreads = 256;        // a block: 256 / L rows
+constexpr int kMaxE = 128;
+constexpr int kMaxK = 16;            // <= L: pick j lives in lane j
 constexpr float kNegInf = -1e30f;    // a taken entry, as NEG_INF on the TPU
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -63,51 +82,10 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
+template <int L>
+__device__ __forceinline__ unsigned group_mask(int lane) {
+  return L == 32 ? kFull : ((1u << (L & 31)) - 1u) << (lane & ~(L - 1));
 }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-// The backward's row softmax: p = softmax of the row's logits in the
-// lane's slots; slots past E get `pad`.
-template <typename T>
-__device__ __forceinline__ void row_softmax(const T* __restrict__ x, int E,
-                                            int lane, float pad,
-                                            float (&p)[kSlots]) {
-  float m = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kSlots; ++j) {
-    const int e = lane + 32 * j;
-    p[j] = e < E ? load_f(x + e) : -INFINITY;
-    m = fmaxf(m, p[j]);
-  }
-  m = warp_max(m);
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < kSlots; ++j) {
-    const int e = lane + 32 * j;
-    p[j] = e < E ? expf(p[j] - m) : 0.f;
-    s += p[j];
-  }
-  s = warp_sum(s);
-#pragma unroll
-  for (int j = 0; j < kSlots; ++j) {
-    const int e = lane + 32 * j;
-    p[j] = e < E ? p[j] / s : pad;
-  }
-}
-
-// The forward's lane groups: L lanes a row, SLOTS logits a lane, in
-// blocks of kFwdThreads threads.
-constexpr int kFwdThreads = 256;
 
 template <int L>
 __device__ __forceinline__ float group_max(float v, unsigned mask) {
@@ -125,26 +103,14 @@ __device__ __forceinline__ float group_sum(float v, unsigned mask) {
   return v;
 }
 
-template <typename T, int L, int SLOTS>
-__global__ void __launch_bounds__(kFwdThreads)
-topk_gating_fwd_kernel(const T* __restrict__ logits, float* __restrict__ w,
-                       int* __restrict__ experts, int rows, int E, int k,
-                       int renorm) {
-  const int lane = threadIdx.x & 31;
-  const int j = lane & (L - 1);
-  const int row = blockIdx.x * (kFwdThreads / L) + threadIdx.x / L;
-  if (row >= rows) return;             // whole groups leave together
-  const unsigned mask =
-      L == 32 ? kFull : ((1u << (L & 31)) - 1u) << (lane & ~(L - 1));
-  const T* x = logits + static_cast<long long>(row) * E;
-  float p[SLOTS];
+// p = softmax of the row x over the lane's slots (lane j: experts j,
+// j + L, ...); slots past E get `pad`.
+template <int L, int SLOTS>
+__device__ __forceinline__ void row_softmax(float (&p)[SLOTS], int j, int E,
+                                            unsigned mask, float pad) {
   float m = -INFINITY;
 #pragma unroll
-  for (int s = 0; s < SLOTS; ++s) {
-    const int e = j + L * s;
-    p[s] = e < E ? load_f(x + e) : -INFINITY;
-    m = fmaxf(m, p[s]);
-  }
+  for (int s = 0; s < SLOTS; ++s) m = fmaxf(m, p[s]);
   m = group_max<L>(m, mask);
   float sum = 0.f;
 #pragma unroll
@@ -154,9 +120,32 @@ topk_gating_fwd_kernel(const T* __restrict__ logits, float* __restrict__ w,
   }
   sum = group_sum<L>(sum, mask);
 #pragma unroll
+  for (int s = 0; s < SLOTS; ++s) p[s] = j + L * s < E ? p[s] / sum : pad;
+}
+
+template <typename T, int L, int SLOTS>
+__device__ __forceinline__ void load_row(const T* __restrict__ x,
+                                         float (&p)[SLOTS], int j, int E) {
+#pragma unroll
   for (int s = 0; s < SLOTS; ++s) {
-    p[s] = j + L * s < E ? p[s] / sum : -INFINITY;
+    const int e = j + L * s;
+    p[s] = e < E ? load_f(x + e) : -INFINITY;
   }
+}
+
+template <typename T, int L, int SLOTS>
+__global__ void __launch_bounds__(kThreads)
+topk_gating_fwd_kernel(const T* __restrict__ logits, float* __restrict__ w,
+                       int* __restrict__ experts, int rows, int E, int k,
+                       int renorm) {
+  const int lane = threadIdx.x & 31;
+  const int j = lane & (L - 1);
+  const int row = blockIdx.x * (kThreads / L) + threadIdx.x / L;
+  if (row >= rows) return;             // whole groups leave together
+  const unsigned mask = group_mask<L>(lane);
+  float p[SLOTS];
+  load_row<T, L, SLOTS>(logits + static_cast<long long>(row) * E, p, j, E);
+  row_softmax<L, SLOTS>(p, j, E, mask, -INFINITY);
   // round r's pick stays in lane r % L, as its (r / L)-th
   constexpr int KP = (kMaxK + L - 1) / L;
   float kw[KP], wsum = 0.f;
@@ -208,102 +197,90 @@ topk_gating_fwd_kernel(const T* __restrict__ logits, float* __restrict__ w,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(32 * kWarps)
+template <typename T, int L, int SLOTS>
+__global__ void __launch_bounds__(kThreads)
 topk_gating_bwd_kernel(const T* __restrict__ logits,
                        const int* __restrict__ experts,
                        const float* __restrict__ dw, T* __restrict__ dlogits,
                        int rows, int E, int k, int renorm) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  float p[kSlots];
-  row_softmax(logits + static_cast<long long>(row) * E, E, lane, 0.f, p);
-  const int* ex = experts + static_cast<long long>(row) * k;
-  const float* g = dw + static_cast<long long>(row) * k;
-  int e_r[kMaxK];
-  float wr[kMaxK], dwr[kMaxK];
-  float S = 0.f;
+  const int j = lane & (L - 1);
+  const int row = blockIdx.x * (kThreads / L) + threadIdx.x / L;
+  if (row >= rows) return;             // whole groups leave together
+  const unsigned mask = group_mask<L>(lane);
+  // one round trip: the row's logits, and in lane j < k pick j
+  float p[SLOTS];
+  load_row<T, L, SLOTS>(logits + static_cast<long long>(row) * E, p, j, E);
+  int pick = -1;
+  float g = 0.f;
+  if (j < k) {
+    const long long o = static_cast<long long>(row) * k + j;
+    pick = experts[o];
+    g = dw[o];
+  }
+  if (static_cast<unsigned>(pick) >= static_cast<unsigned>(E)) pick = -1;
+  row_softmax<L, SLOTS>(p, j, E, mask, 0.f);
+  // wr = p[pick], held by lane pick % L in slot pick / L (none for -1)
+  const int slot = pick < 0 ? -1 : pick / L;
+  float wr = 0.f;
 #pragma unroll
-  for (int r = 0; r < kMaxK; ++r) {
-    if (r < k) {
-      // every lane reads the same k entries (one broadcast load each);
-      // p[e] lives in lane e % 32, slot e / 32
-      const int e = ex[r];
-      const bool valid = e >= 0 && e < E;
-      const int slot = valid ? e >> 5 : 0;
-      float mine = p[0];
+  for (int s = 0; s < SLOTS; ++s) {
+    const float v = __shfl_sync(mask, p[s], pick & (L - 1), L);
+    if (s == slot) wr = v;
+  }
+  // the row's three sums over the picks (lanes >= k add 0), each a
+  // butterfly, so that every lane holds the same bits
+  const float sw = group_sum<L>(wr, mask);
+  float dwr = g, c;
+  if (renorm) {
+    const float S = fmaxf(sw, 1e-9f);
+    const float dot = group_sum<L>(__fmul_rn(g, wr / S), mask);
+    dwr = (g - dot) / S;
+    c = group_sum<L>(__fmul_rn(dwr, wr), mask);
+  } else {
+    c = group_sum<L>(__fmul_rn(g, wr), mask);
+  }
+  // dp[e] = sum of dwr over the picks of expert e, in pick order
+  float dp[SLOTS];
 #pragma unroll
-      for (int j = 1; j < kSlots; ++j)
-        if (slot == j) mine = p[j];
-      const float v = __shfl_sync(kFull, mine, valid ? e & 31 : 0);
-      e_r[r] = e;
-      wr[r] = valid ? v : 0.f;
-      dwr[r] = g[r];
-      S += wr[r];
+  for (int s = 0; s < SLOTS; ++s) dp[s] = 0.f;
+#pragma unroll 1
+  for (int r0 = 0; r0 < k; r0 += 4) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int e = __shfl_sync(mask, pick, r0 + q, L);
+      const float d = __shfl_sync(mask, dwr, r0 + q, L);
+#pragma unroll
+      for (int s = 0; s < SLOTS; ++s)
+        if (e == j + L * s) dp[s] += d;
     }
   }
-  if (renorm) {
-    S = fmaxf(S, 1e-9f);
-    float dot = 0.f;
-#pragma unroll
-    for (int r = 0; r < kMaxK; ++r)
-      if (r < k) dot += dwr[r] * (wr[r] / S);
-#pragma unroll
-    for (int r = 0; r < kMaxK; ++r)
-      if (r < k) dwr[r] = (dwr[r] - dot) / S;
-  }
-  float c = 0.f;
-#pragma unroll
-  for (int r = 0; r < kMaxK; ++r)
-    if (r < k) c += dwr[r] * wr[r];
   T* out = dlogits + static_cast<long long>(row) * E;
 #pragma unroll
-  for (int j = 0; j < kSlots; ++j) {
-    const int e = lane + 32 * j;
-    if (e < E) {
-      float dp = 0.f;
-#pragma unroll
-      for (int r = 0; r < kMaxK; ++r)
-        if (r < k && e_r[r] == e) dp += dwr[r];
-      store_f(out + e, p[j] * (dp - c));
-    }
+  for (int s = 0; s < SLOTS; ++s) {
+    const int e = j + L * s;
+    if (e < E) store_f(out + e, p[s] * (dp[s] - c));
   }
 }
 
-bool bad_shape(int rows, int E, int k) {
-  return rows <= 0 || E < 1 || E > 32 * kSlots || k < 1 || k > E ||
-         k > kMaxK;
-}
+template <int L_, int SLOTS_>
+struct Layout {
+  static constexpr int L = L_, SLOTS = SLOTS_;
+};
 
-dim3 grid_for(int rows) { return dim3((rows + kWarps - 1) / kWarps); }
-
-template <typename T, int L, int SLOTS>
-cudaError_t launch_group(const T* logits, float* w, int* experts, int rows,
-                         int E, int k, int renorm, int blocks,
-                         cudaStream_t s) {
-  topk_gating_fwd_kernel<T, L, SLOTS><<<blocks, kFwdThreads, 0, s>>>(
-      logits, w, experts, rows, E, k, renorm);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_fwd(const T* logits, float* w, int* experts, int rows,
-                       int E, int k, int renorm, int lanes, int slots,
-                       int blocks, cudaStream_t s) {
+// launch(Layout<L, SLOTS>{}) for the instantiated pairs of kernel.py:
+// FWD_SLOTS; cudaErrorInvalidValue for any other pair
+template <typename F>
+cudaError_t by_layout(int lanes, int slots, F&& launch) {
   switch (lanes * 100 + slots) {
     case 1604:
-      return launch_group<T, 16, 4>(logits, w, experts, rows, E, k, renorm,
-                                    blocks, s);
+      return launch(Layout<16, 4>{});
     case 1608:
-      return launch_group<T, 16, 8>(logits, w, experts, rows, E, k, renorm,
-                                    blocks, s);
+      return launch(Layout<16, 8>{});
     case 3202:
-      return launch_group<T, 32, 2>(logits, w, experts, rows, E, k, renorm,
-                                    blocks, s);
+      return launch(Layout<32, 2>{});
     case 3204:
-      return launch_group<T, 32, 4>(logits, w, experts, rows, E, k, renorm,
-                                    blocks, s);
+      return launch(Layout<32, 4>{});
     default:
       return cudaErrorInvalidValue;
   }
@@ -311,56 +288,80 @@ cudaError_t launch_fwd(const T* logits, float* w, int* experts, int rows,
 
 }  // namespace
 
-// The forward's shape and grid, built once for each shape by the wrapper
-// (kernel.py:_fwd_config) and passed by address: a ctypes call costs the
-// host about a quarter of a microsecond an argument.  lanes (a row's
-// group), slots (logits a lane) and blocks as kernel.py:gating_plan gives
-// them: (32, 2), (32, 4), (16, 4) or (16, 8) with lanes * slots >= E,
-// blocks * 256 / lanes >= rows.
-struct FwdConfig {
+// A launch's shape and grid, built once for each shape by the wrapper
+// (kernel.py:_fwd_config, _bwd_config) and passed by address: a ctypes
+// call costs the host about a quarter of a microsecond an argument.
+// lanes (a row's group), slots (logits a lane) and blocks as
+// kernel.py:gating_plan gives them:
+// (32, 2), (32, 4), (16, 4) or (16, 8) with lanes * slots >= E,
+// blocks * 256 / lanes >= rows.  dtype: 0 = fp32 logits, 1 = bf16 logits.
+struct Config {
   int rows, E, k, renorm, dtype, lanes, slots, blocks;
 };
 
-// dtype: 0 = fp32 logits, 1 = bf16 logits.  Each returns
-// cudaGetLastError() after its launch (cudaErrorInvalidValue for a shape
-// the kernel does not take).
+namespace {
+
+bool bad_config(const Config* c) {
+  return c->rows <= 0 || c->E < 1 || c->E > kMaxE || c->k < 1 ||
+         c->k > c->E || c->k > kMaxK || (c->dtype != 0 && c->dtype != 1) ||
+         c->lanes < kMaxK || c->lanes * c->slots < c->E ||
+         static_cast<long long>(c->blocks) * (kThreads / c->lanes) < c->rows;
+}
+
+template <typename T>
+cudaError_t launch_fwd(const T* logits, float* w, int* experts,
+                       const Config* c, cudaStream_t s) {
+  return by_layout(c->lanes, c->slots, [&](auto layout) {
+    using Lay = decltype(layout);
+    topk_gating_fwd_kernel<T, Lay::L, Lay::SLOTS>
+        <<<c->blocks, kThreads, 0, s>>>(logits, w, experts, c->rows, c->E,
+                                        c->k, c->renorm);
+    return cudaGetLastError();
+  });
+}
+
+template <typename T>
+cudaError_t launch_bwd(const T* logits, const int* experts, const float* dw,
+                       T* dlogits, const Config* c, cudaStream_t s) {
+  return by_layout(c->lanes, c->slots, [&](auto layout) {
+    using Lay = decltype(layout);
+    topk_gating_bwd_kernel<T, Lay::L, Lay::SLOTS>
+        <<<c->blocks, kThreads, 0, s>>>(logits, experts, dw, dlogits, c->rows,
+                                        c->E, c->k, c->renorm);
+    return cudaGetLastError();
+  });
+}
+
+}  // namespace
+
+// Each returns cudaGetLastError() after its launch (cudaErrorInvalidValue
+// for a shape or layout the kernels do not take).
 extern "C" int topk_gating_fwd(const void* logits, void* w, void* experts,
-                               const FwdConfig* c, void* stream) {
-  const int rows = c->rows, lanes = c->lanes;
-  if (bad_shape(rows, c->E, c->k) || (c->dtype != 0 && c->dtype != 1) ||
-      lanes < 1 || lanes * c->slots < c->E ||
-      static_cast<long long>(c->blocks) * (kFwdThreads / lanes) < rows)
-    return static_cast<int>(cudaErrorInvalidValue);
+                               const Config* c, void* stream) {
+  if (bad_config(c)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* wo = static_cast<float*>(w);
   int* eo = static_cast<int*>(experts);
   const cudaError_t err =
       c->dtype == 0
-          ? launch_fwd(static_cast<const float*>(logits), wo, eo, rows, c->E,
-                       c->k, c->renorm, lanes, c->slots, c->blocks, s)
-          : launch_fwd(static_cast<const __nv_bfloat16*>(logits), wo, eo,
-                       rows, c->E, c->k, c->renorm, lanes, c->slots,
-                       c->blocks, s);
+          ? launch_fwd(static_cast<const float*>(logits), wo, eo, c, s)
+          : launch_fwd(static_cast<const __nv_bfloat16*>(logits), wo, eo, c,
+                       s);
   return static_cast<int>(err);
 }
 
 extern "C" int topk_gating_bwd(const void* logits, const void* experts,
-                               const void* dw, void* dlogits, int rows, int E,
-                               int k, int renorm, int dtype, void* stream) {
-  if (bad_shape(rows, E, k) || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+                               const void* dw, void* dlogits, const Config* c,
+                               void* stream) {
+  if (bad_config(c)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ex = static_cast<const int*>(experts);
   const float* g = static_cast<const float*>(dw);
-  if (dtype == 0) {
-    topk_gating_bwd_kernel<float><<<grid_for(rows), 32 * kWarps, 0, s>>>(
-        static_cast<const float*>(logits), ex, g,
-        static_cast<float*>(dlogits), rows, E, k, renorm);
-  } else {
-    topk_gating_bwd_kernel<__nv_bfloat16>
-        <<<grid_for(rows), 32 * kWarps, 0, s>>>(
-            static_cast<const __nv_bfloat16*>(logits), ex, g,
-            static_cast<__nv_bfloat16*>(dlogits), rows, E, k, renorm);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      c->dtype == 0
+          ? launch_bwd(static_cast<const float*>(logits), ex, g,
+                       static_cast<float*>(dlogits), c, s)
+          : launch_bwd(static_cast<const __nv_bfloat16*>(logits), ex, g,
+                       static_cast<__nv_bfloat16*>(dlogits), c, s);
+  return static_cast<int>(err);
 }

@@ -47,7 +47,10 @@ class TopKGating(torch.autograd.Function):
     def backward(ctx, dw, _dexperts):
         logits, experts = ctx.saved_tensors
         bwd = topk_gating_bwd if logits.is_cuda else topk_gating_bwd_ref
-        return bwd(logits, experts, dw, ctx.k, ctx.renorm), None, None
+        # dw is fp32 (the weights' dtype) but may be a broadcast view (the
+        # gradient of a sum), and the kernel reads it densely
+        return bwd(logits, experts, dw.contiguous(), ctx.k, ctx.renorm), \
+            None, None
 
 
 def topk_gating(logits, *, k: int, renorm=True, impl="auto"):
