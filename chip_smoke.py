@@ -80,28 +80,52 @@ Phases (any failure exits non-zero and prints no result line):
    kernel's launch counter zeroed before and > 0 after, step time,
    tokens/s, model FLOPs utilisation, peak memory, and one profiled
    step.
-5. MoE serving: qwen2-moe-a2.7b at full width (24 layers, random bf16
+5. checkpoint: phi4-mini-3.8b at full width with 2 of its 32 layers
+   (~0.82 B parameters, ~11.4 GB of bf16 params and fp32 master, m, v;
+   ~23 GB on disk at replication 2; the phase fails unless 3x the
+   state's bytes are free under build/ckpt_phase): a probe (one step
+   twice from two clones of one state: does the step repeat bitwise?),
+   6 steps straight, then 3 steps, an async ``ElasticCheckpointer``
+   save to an in-process 3FS cluster with 2 more steps taken while the
+   write is in flight, a restart (state, model, checkpointer and
+   cluster dropped, a fresh 3FS backend over the root) and
+   ``restore_latest``, the remaining 3 steps (batches from the port's
+   ``PrefetchLoader``), ``restore_for`` onto ddp + ZeRO-1 over a
+   one-rank gloo grid, saved as ``zero1_flat`` and resharded back to a
+   tree, and ``python -m repro_torch.launch.train --smoke --ckpt-fs3``
+   on the card (run as ``-m`` runs it, in this process), 4 steps then
+   ``--resume`` to 6.  Gates: the restored state bitwise equal to
+   the state at the save, the resumed losses and final state bitwise
+   equal to the straight run's, the tree -> ZeRO-1 -> tree round trip
+   bitwise, the training kernels launched in the resumed steps, and
+   four planted faults caught (a snapshot holding references, one
+   master offset shifted by one element, a ZeRO-1 shard missing, the
+   resumed loader restarted at step 0).  Prints the checkpoint's bytes
+   and chunks, the seconds the caller was blocked by the async save,
+   of the background write and of the restore with their GB/s, and
+   the free disk.
+6. MoE serving: qwen2-moe-a2.7b at full width (24 layers, random bf16
    weights from seed 0) serves the same trace over its vocabulary, both
    runs, every serving kernel (the top-k gating forward included)
    launched; logits against the gating-only reference (gate_impl
    "ref") and the whole plain path; one MoE layer at full width against
    the plain route, with experts rolled by one as a planted fault.
-6. MoE training: qwen2-moe-a2.7b at full widths with 4 of its 24 layers
+7. MoE training: qwen2-moe-a2.7b at full widths with 4 of its 24 layers
    (capacity-limited dispatch): loss and gradients against the plain
    path, the gating-only reference and the plain gating backward (with
    planted gating-backward faults), then 8 AdamW steps as in 4.
 
-7. hybrid serving: zamba2-1.2b at full width and depth (38 Mamba-2
+8. hybrid serving: zamba2-1.2b at full width and depth (38 Mamba-2
    layers, the shared attention block 6 times, random bf16 weights from
    seed 0) serves the same trace, both runs, every serving kernel (the
    SSD chunk scan included, 38 launches per prompt) launched; logits
    against the SSD-only reference (ssm_impl "ref") and the whole plain
    path.
-8. hybrid training: zamba2-1.2b at full width and depth: loss and
+9. hybrid training: zamba2-1.2b at full width and depth: loss and
    gradients against the plain path and against the plain SSD backward
    in place of the kernel's (with planted SSD-backward faults), then 8
    AdamW steps as in 4, with the SSD kernels' launches per step checked.
-9. HaiScale DDP training: gpt2-medium at full width and depth (24
+10. HaiScale DDP training: gpt2-medium at full width and depth (24
    layers, d 1024) as 8 ranks sharing the card, 2 pods x 4 data, each
    rank 2 x 1024 tokens, gloo collectives staged through pinned host
    memory (``core.grid.Grid(stage="host")``, spawned by
@@ -2699,6 +2723,457 @@ def train_phase(dev):
     return out, failures
 
 
+# -------------------------------- checkpoint --------------------------------
+
+# phi4-mini-3.8b at full width with its 32 layers cut to CKPT_LAYERS:
+# ~0.82 B parameters, ~11.4 GB of training state (bf16 params, fp32
+# master, m, v), ~23 GB on disk at the 3FS backend's replication 2 (the
+# full depth would be ~54 GB of state, ~108 GB on disk)
+CKPT_LAYERS = 2
+CKPT_STEPS, CKPT_SAVE_AT = 6, 3        # run A's steps; run B saves after 3
+CKPT_FREE_FACTOR = 3                   # free disk wanted, in state bytes
+CKPT_ROOT = ROOT / "build" / "ckpt_phase"
+CKPT_FAULTS = {
+    "snapshot": "the snapshot holds references, not copies",
+    "offset": "a restore with one master offset shifted by one element",
+    "shard": "a ZeRO-1 restore missing one shard",
+    "loader": "a resume whose loader restarts at step 0",
+}
+
+
+def _clone_tree(state):
+    from repro_torch.ckpt.manager import named_leaves, unflatten_like
+    return unflatten_like(state, [t.clone() for _, t in named_leaves(state)])
+
+
+def leaves_differing(got, ref):
+    """Names of the leaves of ``got`` whose dtype, shape or any bit
+    differs from ``ref``'s (every leaf of both, ``step`` included)."""
+    import torch
+    from repro_torch.ckpt.manager import named_leaves
+    g, r = dict(named_leaves(got)), dict(named_leaves(ref))
+    if sorted(g) != sorted(r):
+        return sorted(set(g) ^ set(r))
+    return [n for n in sorted(g) if g[n].dtype != r[n].dtype
+            or g[n].shape != r[n].shape or not torch.equal(
+                g[n].view(torch.uint8) if g[n].dim() else g[n],
+                r[n].view(torch.uint8) if r[n].dim() else r[n])]
+
+
+def max_abs_apart(got, ref):
+    """The largest |got - ref| over every float leaf (fp32)."""
+    from repro_torch.ckpt.manager import named_leaves
+    r = dict(named_leaves(ref))
+    return max((float((t.float() - r[n].float()).abs().max())
+                for n, t in named_leaves(got) if t.is_floating_point()),
+               default=0.0)
+
+
+def ckpt_steps(step_fn, state, cfg, dev, start, n):
+    """``n`` steps from loader step ``start``: ``PrefetchLoader`` yields
+    host numpy batches from its thread, this thread moves them to the
+    card.  Returns (state, losses)."""
+    import torch
+    from repro_torch.data import make_synthetic_loader
+    loader = make_synthetic_loader(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED,
+                                   start_step=start)
+    losses = []
+    try:
+        for _, batch in loader:
+            if len(losses) == n:
+                break
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in batch.items()}
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+    finally:
+        loader.stop()
+    return state, losses
+
+
+def _du(path):
+    return sum(p.stat().st_size for p in Path(path).rglob("*")
+               if p.is_file())
+
+
+def _patched_manifest(ck, edit):
+    """``ck.load_manifest`` with ``edit(manifest)`` applied (a planted
+    fault in what the restore reads)."""
+    load = ck.load_manifest
+
+    def planted(step):
+        man = load(step)
+        edit(man)
+        return man
+    ck.load_manifest = planted
+    return ck
+
+
+def ckpt_cli(root):
+    """The launcher's checkpoint flags on the card: ``python -m
+    repro_torch.launch.train`` run as ``-m`` runs it (``runpy``, in this
+    process: a second interpreter spends ~15 s reaching the card), 4
+    steps with a 3FS checkpoint every 2, then ``--resume`` to 6.  A run
+    exits 0 when the module returns; an exception or ``SystemExit`` is
+    its failure."""
+    import contextlib
+    import io
+    import runpy
+    base = ["--arch", ARCH, "--smoke", "--batch", "4", "--seq", "128",
+            "--ckpt-dir", str(root), "--ckpt-fs3", "--log-every", "1"]
+    out, argv = [], sys.argv
+    for extra in (["--ckpt-every", "2", "--steps", "4"],
+                  ["--resume", "--steps", "6"]):
+        buf, rc = io.StringIO(), 0
+        sys.argv = ["-m"] + base + extra
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_module("repro_torch.launch.train",
+                                 run_name="__main__", alter_sys=True)
+        except SystemExit as e:               # as the interpreter reads it
+            rc = e.code if isinstance(e.code, int) else int(
+                e.code is not None)
+        except Exception:
+            rc, buf = 1, io.StringIO(buf.getvalue() + traceback.format_exc())
+        finally:
+            sys.argv = argv
+        out.append({"argv": extra, "rc": rc,
+                    "stdout": buf.getvalue()[-2000:]})
+    ok = all(r["rc"] == 0 for r in out) and \
+        "resumed from step 4" in out[1]["stdout"]
+    return {"runs": out, "ok": ok}
+
+
+def ckpt_phase(dev):
+    """Checkpoints on the training path, at phi4-mini-3.8b's full width
+    with CKPT_LAYERS layers (bf16 weights drawn on the card from SEED;
+    AdamW with fp32 masters and moments; plan gspmd; batches of
+    TRAIN_BATCH x TRAIN_SEQ from the port's ``PrefetchLoader``).
+
+    A probe (one step twice from two card-side clones of one state),
+    run A (CKPT_STEPS straight), run B (CKPT_SAVE_AT steps, an async
+    ``ElasticCheckpointer`` save to a 3FS root, a clone of the state at
+    the save, two more steps while the write is in flight, ``wait``),
+    a restart (state, model, checkpointer and cluster dropped; a fresh
+    3FS backend over the root; ``restore_latest``), the remaining steps
+    from the restored state (launch counters zeroed before, read
+    after), then ``restore_for`` onto ddp + ZeRO-1 over a one-rank gloo
+    grid, that state saved as ``zero1_flat`` (plain files) and
+    resharded back to a tree, and the launcher's checkpoint flags
+    (``ckpt_cli``).  Gates:
+    the restored state bitwise equal to the clone at the save, the
+    resumed losses and final state bitwise equal to run A's (or, if the
+    probe shows the step itself does not repeat, within the probe's
+    spread), the tree -> ZeRO-1 -> tree round trip bitwise, the training
+    kernels launched in the resumed steps, each of CKPT_FAULTS caught.
+    Prints the seconds of each step (``ckpt_seconds``).  Returns
+    (results, failures); removes its roots."""
+    import shutil
+    import threading
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt import fs3_backend
+    from repro_torch.ckpt import manager as manager_lib
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.grid import Grid, free_port
+    from repro_torch.data.synthetic import batch_for_model
+    from repro_torch.elastic import ElasticCheckpointer, reshard, \
+        snapshot_sharded
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.parallel import ParallelPlan, init_state, \
+        make_train_step
+    from repro_torch.telemetry import get_registry, now
+    t_phase = now()
+    marks, last = {}, [t_phase]
+    read_h = get_registry().histogram("span.ckpt.read")
+
+    def mark(label):
+        """Seconds since the previous mark, under ``label``."""
+        t = now()
+        marks[label] = t - last[0]
+        last[0] = t
+    cfg = dataclasses.replace(get_arch(ARCH), n_layers=CKPT_LAYERS)
+    opt = AdamW(lr=warmup_cosine(3e-4, 2, CKPT_STEPS))
+    plan = ParallelPlan(mode="gspmd")
+    zplan = ParallelPlan(mode="ddp", zero1=True, overlap=False)
+    failures, out = [], {"arch": ARCH, "layers": CKPT_LAYERS,
+                         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ}
+
+    def build():
+        model = build_model(cfg)
+        return model, make_train_step(plan, model, opt, device=dev)
+
+    def fresh(model):
+        return init_state(plan, opt, model.init(SEED, device=dev,
+                                                dtype="bfloat16"))
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    model, step_fn = build()
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    CKPT_ROOT.mkdir(parents=True)
+    roots = [CKPT_ROOT / n for n in ("tree", "zero1", "fault", "cli")]
+
+    # 0. the state's bytes, and free disk for them
+    probe_a = fresh(model)
+    nbytes = sum(t.numel() * t.element_size()
+                 for _, t in manager_lib.named_leaves(probe_a))
+    free = shutil.disk_usage(CKPT_ROOT).free
+    out.update(state_bytes=nbytes, free_disk_bytes=free, params=sum(
+        t.numel() for _, t in manager_lib.named_leaves(probe_a["params"])))
+    print(json.dumps({"ckpt_disk": {"state_bytes": nbytes,
+                                    "free_bytes": free,
+                                    "wanted": CKPT_FREE_FACTOR * nbytes}}),
+          flush=True)
+    if free < CKPT_FREE_FACTOR * nbytes:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+        return out, [f"checkpoint: {free} bytes free under {CKPT_ROOT}, "
+                     f"{CKPT_FREE_FACTOR} x the state's {nbytes} wanted"]
+
+    # 1. probe: one step twice from two card-side clones of one state
+    probe_b = _clone_tree(probe_a)
+    b0 = {k: torch.as_tensor(v, device=dev) for k, v in batch_for_model(
+        cfg, "train", 0, TRAIN_BATCH, TRAIN_SEQ, seed=SEED).items()}
+    probe_a, ma = step_fn(probe_a, b0)
+    probe_b, mb = step_fn(probe_b, b0)
+    la, lb = float(ma["loss"]), float(mb["loss"])
+    probe = {"bitwise": la == lb and not leaves_differing(probe_a, probe_b),
+             "loss_spread": abs(la - lb),
+             "state_spread": max_abs_apart(probe_a, probe_b),
+             "leaves_apart": leaves_differing(probe_a, probe_b)[:8]}
+    out["probe"] = probe
+    print(json.dumps({"ckpt_probe": probe}), flush=True)
+    del probe_a, probe_b, ma, mb, b0
+    mark("model, probe")
+
+    def same_trajectory(losses, state, ref_losses, ref_state):
+        """Bitwise, or within the probe's spread where the step does not
+        repeat bitwise (4x, the spread of one step over 3)."""
+        if probe["bitwise"]:
+            return losses == ref_losses and \
+                not leaves_differing(state, ref_state)
+        return max(abs(a - b) for a, b in zip(losses, ref_losses)) <= \
+            4 * probe["loss_spread"] and \
+            max_abs_apart(state, ref_state) <= 4 * probe["state_spread"]
+
+    # 2. run A: CKPT_STEPS steps straight
+    run_a, losses_a = ckpt_steps(step_fn, fresh(model), cfg, dev, 0,
+                                 CKPT_STEPS)
+    mark("run A")
+
+    # 3. run B: CKPT_SAVE_AT steps, an async save, two steps in flight
+    state, losses_b = ckpt_steps(step_fn, fresh(model), cfg, dev, 0,
+                                 CKPT_SAVE_AT)
+    ck = ElasticCheckpointer(fs3_backend(str(roots[0])), plan)
+    sync()
+    mark("run B to the save")
+    t0 = now()
+    ck.save(state, CKPT_SAVE_AT, blocking=False)
+    blocked = now() - t0
+    at_save = _clone_tree(state)
+    t0 = now()
+    state, losses_b2 = ckpt_steps(step_fn, state, cfg, dev, CKPT_SAVE_AT, 2)
+    steps_in_flight = now() - t0
+    ck.wait()
+    mark("save, steps in flight, wait")
+    wrote = ck.seconds["write"]
+    index = json.loads(ck.backend.read(f"step_{CKPT_SAVE_AT}/index.json"))
+    ckpt_bytes = sum(r["size"] for r in index["tensors"].values())
+    save = {"bytes": ckpt_bytes, "chunks": len(index["chunks"]),
+            "disk_bytes": _du(roots[0]), "blocked_s": blocked,
+            "write_s": wrote, "steps_in_flight_s": steps_in_flight,
+            "blocked_gb_per_s": ckpt_bytes / blocked / 1e9,
+            "write_gb_per_s": ckpt_bytes / wrote / 1e9}
+    out["save"] = save
+    print(json.dumps({"ckpt_save": save}), flush=True)
+    if losses_b != losses_a[:CKPT_SAVE_AT]:
+        failures.append(f"checkpoint: run B's first steps {losses_b} are "
+                        f"not run A's {losses_a[:CKPT_SAVE_AT]}")
+
+    # 4. restart: state, model, checkpointer and cluster dropped
+    del state, ck, model, step_fn
+    torch.cuda.empty_cache()
+    model, step_fn = build()
+    ck = ElasticCheckpointer(fs3_backend(str(roots[0])), plan)
+    template = fresh(model)
+    sync()
+    mark("restart")
+    read0, t0 = read_h.sum, now()
+    restored, step = ck.restore_latest(template)
+    sync()
+    restore_s = now() - t0
+    read_s = read_h.sum - read0
+    del template
+    mark("restore")
+    apart = leaves_differing(restored, at_save)
+    out["restore"] = {"step": step, "seconds": restore_s,
+                      "gb_per_s": ckpt_bytes / restore_s / 1e9,
+                      "read_s": read_s, "leaves_differing": apart}
+    print(json.dumps({"ckpt_restore": out["restore"]}), flush=True)
+    if step != CKPT_SAVE_AT or apart:
+        failures.append(f"checkpoint: restored step {step} differs from "
+                        f"the state at the save in {apart[:8]}")
+
+    # 5. the remaining steps from the restored state
+    sync()
+    reset_launch_counts()
+    restored, losses_r = ckpt_steps(step_fn, restored, cfg, dev, step,
+                                    CKPT_STEPS - step)
+    sync()
+    counts = launch_counts()
+    resume_ok = same_trajectory(losses_r, restored, losses_a[step:], run_a)
+    out["resume"] = {"losses": losses_r, "run_a": losses_a,
+                     "ok": resume_ok, "launches": counts,
+                     "state_apart": max_abs_apart(restored, run_a)}
+    print(json.dumps({"ckpt_resume": out["resume"]}), flush=True)
+    if not resume_ok:
+        failures.append(f"checkpoint: resumed losses {losses_r} against "
+                        f"run A's {losses_a[step:]} (probe {probe})")
+    dead = [k for k in TRAIN_KERNELS if counts[k] <= 0]
+    if dead:
+        failures.append(f"checkpoint: kernels never launched in the "
+                        f"resumed steps: {dead}")
+    del restored
+    mark("resumed steps")
+    faults = {}
+
+    # fault: one master offset shifted by one element
+    def shift(man):
+        path = next(iter(man["master"]["offsets"]))
+        man["master"]["offsets"][path] = [
+            s + 1 for s in man["master"]["offsets"][path]]
+    bad = _patched_manifest(ElasticCheckpointer(
+        fs3_backend(str(roots[0])), plan), shift).restore(
+        CKPT_SAVE_AT, {"params": run_a["params"]})
+    faults["offset"] = bool(leaves_differing(bad, at_save))
+    del bad
+    mark("fault: offset")
+
+    # 6. cross-plan: ZeRO-1 over a one-rank gloo grid and back to a tree
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        grid = Grid(1, 1, stage="host")
+        t0 = now()
+        z, _ = ElasticCheckpointer(fs3_backend(str(roots[0])),
+                                   plan).restore_for(zplan, grid,
+                                                     run_a["params"])
+        sync()
+        cross_s = now() - t0
+        mark("restore_for ZeRO-1")
+        # the 3FS root's thousands of files go while the ZeRO-1 state is
+        # saved (plain files: the round trip is the layout's)
+        gone = threading.Thread(target=shutil.rmtree, args=(roots[0],))
+        gone.start()
+        zk = ElasticCheckpointer(str(roots[1]), zplan, grid)
+        t0 = now()
+        zk.save(z, CKPT_SAVE_AT, blocking=False)
+        zblocked = now() - t0
+        zk.wait()
+        mark("ZeRO-1 save")
+        t0 = now()               # the snapshot again, its buffer cached
+        snap, _ = snapshot_sharded(z, zplan, grid, CKPT_SAVE_AT,
+                                   zk.snapshot)
+        warm = now() - t0
+        del snap, z
+
+        def drop_shard(man):
+            man["flat"]["master"]["shards"].pop()
+        try:
+            _patched_manifest(ElasticCheckpointer(str(roots[1]), zplan,
+                                                  grid),
+                drop_shard).restore(CKPT_SAVE_AT,
+                                    {"params": run_a["params"]})
+            faults["shard"] = False
+        except ValueError:
+            faults["shard"] = True
+        mark("fault: shard")
+        t0 = now()
+        back, _ = reshard(ElasticCheckpointer(str(roots[1]), zplan, grid),
+                          plan, None, run_a["params"], step=CKPT_SAVE_AT)
+        sync()
+        back_s = now() - t0
+        mark("reshard back")
+    finally:
+        dist.destroy_process_group()
+    shutil.rmtree(roots[1])
+    gone.join()
+    apart = leaves_differing(back, at_save)
+    out["cross_plan"] = {
+        "restore_for_s": cross_s, "zero1_blocked_s": zblocked,
+        "zero1_write_s": zk.seconds["write"], "zero1_snapshot_warm_s": warm,
+        "zero1_snapshot_warm_gb_per_s": ckpt_bytes / warm / 1e9,
+        "reshard_back_s": back_s, "leaves_differing": apart}
+    print(json.dumps({"ckpt_cross_plan": out["cross_plan"]}), flush=True)
+    if apart:
+        failures.append(f"checkpoint: tree -> ZeRO-1 -> tree differs in "
+                        f"{apart[:8]}")
+    del back, zk
+
+    # fault: the snapshot holds references; the writer reaches the data
+    # after the next two steps (a real write is slower than two steps).
+    # Plain files: the fault is the snapshot's, whatever the backend
+    gate = threading.Event()
+    pack = manager_lib.pack_named
+
+    def held_pack(*a, **k):
+        gate.wait(timeout=600)
+        return pack(*a, **k)
+    manager_lib.pack_named = held_pack
+    try:
+        fk = ElasticCheckpointer(str(roots[2]), plan)
+        fk.snapshot = list                   # the live tensors themselves
+        live = _clone_tree(at_save)
+        fk.save(live, CKPT_SAVE_AT, blocking=False)
+        live, _ = ckpt_steps(step_fn, live, cfg, dev, CKPT_SAVE_AT, 2)
+        gate.set()
+        fk.wait()
+    finally:
+        gate.set()
+        manager_lib.pack_named = pack
+    del live
+    mark("fault: snapshot, save")
+    bad = ElasticCheckpointer(str(roots[2]), plan).restore(
+        CKPT_SAVE_AT, {"params": run_a["params"]})
+    faults["snapshot"] = bool(leaves_differing(bad, at_save))
+    del bad
+    shutil.rmtree(roots[2])
+    mark("fault: snapshot, restore")
+
+    # fault: the resumed steps with the loader restarted at step 0 (from
+    # the state at the save, which the restored state equals bitwise)
+    at_save, losses_0 = ckpt_steps(step_fn, at_save, cfg, dev, 0,
+                                   CKPT_STEPS - CKPT_SAVE_AT)
+    faults["loader"] = not same_trajectory(losses_0, at_save,
+                                           losses_a[CKPT_SAVE_AT:], run_a)
+    del at_save, run_a, model, step_fn
+    torch.cuda.empty_cache()
+    mark("fault: loader")
+    out["faults"] = [{"fault": CKPT_FAULTS[k], "caught": v}
+                     for k, v in faults.items()]
+    print(json.dumps({"ckpt_faults": out["faults"]}), flush=True)
+    failures += [f"checkpoint: planted fault '{CKPT_FAULTS[k]}' passed "
+                 "the gates" for k, v in faults.items() if not v]
+
+    # 7. the launcher's checkpoint flags, two processes
+    out["cli"] = ckpt_cli(roots[3])
+    mark("cli")
+    print(json.dumps({"ckpt_cli": out["cli"]}), flush=True)
+    if not out["cli"]["ok"]:
+        failures.append(f"checkpoint: the launcher's --ckpt-fs3 / --resume "
+                        f"runs failed: {out['cli']['runs']}")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    mark("clean up")
+    out["seconds"] = now() - t_phase
+    out["seconds_by_step"] = marks
+    print(json.dumps({"ckpt_seconds": marks}), flush=True)
+    return out, failures
+
+
 # ----------------------------------- MoE ------------------------------------
 
 
@@ -4060,6 +4535,9 @@ def main():
     print(json.dumps({"train": train}), flush=True)
     failures += train_failures
     torch.cuda.empty_cache()
+    ckpt, ckpt_failures = timed("checkpoint", lambda: ckpt_phase(dev))
+    failures += ckpt_failures
+    torch.cuda.empty_cache()
     moe_e2e, moe_failures = timed("moe serving",
                                   lambda: moe_serve_phase(dev))
     failures += moe_failures
@@ -4102,6 +4580,12 @@ def main():
                 runs[key] = run["launches"][name]
                 per_step[f"{key} (per engine step)"] = \
                     run["launches_per_step"][name]
+        if name in TRAIN_KERNELS and "resume" in ckpt:
+            key = f"{ARCH} {CKPT_LAYERS} layers, checkpoint resume " \
+                  f"{CKPT_STEPS - CKPT_SAVE_AT} steps"
+            runs[key] = ckpt["resume"]["launches"][name]
+            per_step[f"{key} (per step)"] = \
+                ckpt["resume"]["launches"][name] / (CKPT_STEPS - CKPT_SAVE_AT)
         for arch, tr, kernels in (
                 (ARCH, train, TRAIN_KERNELS),
                 (MOE_ARCH, moe_train, MOE_TRAIN_KERNELS),
@@ -4145,6 +4629,11 @@ def main():
                                "losses", "launches_per_step")}}),
             flush=True)
     print(json.dumps({"ddp_summary": ddp}), flush=True)
+    print(json.dumps({"ckpt_summary": {"card": card, **{
+        k: ckpt.get(k) for k in ("arch", "layers", "params", "state_bytes",
+                                 "free_disk_bytes", "save", "restore",
+                                 "cross_plan", "seconds")},
+        "probe_bitwise": ckpt.get("probe", {}).get("bitwise")}}), flush=True)
     for label, serve in (("moe_serve_summary", moe_e2e),
                          ("hybrid_serve_summary", hybrid_e2e)):
         print(json.dumps({label: {

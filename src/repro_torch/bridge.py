@@ -23,9 +23,9 @@ _VIEWED = {
 
 
 def tensor_from_numpy(a, device="cpu", dtype=None) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:      # e.g. jax.device_get results
-        a = a.copy()
+    a = np.asarray(a)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = a.copy()               # e.g. jax.device_get results; 0-d kept
     name = str(a.dtype)
     if name in _VIEWED:
         tdt, npint, tint = _VIEWED[name]

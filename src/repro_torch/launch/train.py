@@ -11,7 +11,9 @@ with HFReduce over ranks (ddp).
 
 Runs on the card by default (``--device cuda``) and stops with an error
 when there is none; ``--device cpu`` runs the plain PyTorch path.
-``--smoke`` runs the reduced config in float32.  Weights are random,
+``--smoke`` runs the reduced config: in float32 on the CPU, as the JAX
+launcher's smoke runs do; on the card in its bf16 with heads of at
+least 64 (the flash kernels take head dim 64 or 128).  Weights are random,
 drawn from ``--seed`` straight into the compute dtype (at full width a
 float32 draw would hold 15 GB beside the optimizer state); AdamW keeps
 float32 masters of them.  Data is the synthetic LM stream, one global
@@ -25,8 +27,26 @@ takes its rows of the global batch.  On the card the collectives are
 staged through pinned host memory (HFReduce's own path); the ranks may
 share one card.  ``--compress``, ``--bucket-mb``, ``--zero1`` and
 ``--no-overlap`` shape the gradient sync and are refused with
-``--parallel gspmd``, as the JAX launcher refuses them.  The pipelined
-path is ROADMAP A13, checkpoints A8.
+``--parallel gspmd``, as the JAX launcher refuses them.
+
+Checkpoints, as the JAX launcher writes them: ``--ckpt-dir`` builds an
+``elastic.ElasticCheckpointer`` (plan-stamped steps, ``plan.json``
+beside each ``index.json``), on plain files or, with ``--ckpt-fs3``, on
+an in-process 3FS cluster under the directory; a save every
+``--ckpt-every`` steps (off the critical path with ``--ckpt-async``:
+the host copy on this thread, the write on a background one) and a
+blocking one at the end.  A checkpoint's step is the number of steps
+its state has taken, so ``--resume`` restores the latest one and starts
+the loader (``data.make_synthetic_loader``, a prefetching thread) at
+that step; a checkpoint stamped under another plan is refused unless
+``--resume-plan`` reshards it onto this run's.  The pipelined path and
+its ``--pp-*`` flags are ROADMAP A13, ``--trace`` A14.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \\
+      --smoke --device cpu --steps 4 --ckpt-dir /tmp/ck --ckpt-fs3 \\
+      --ckpt-every 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \\
+      --smoke --device cpu --steps 6 --ckpt-dir /tmp/ck --ckpt-fs3 --resume
 """
 from __future__ import annotations
 
@@ -91,7 +111,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
-                    help="reduced same-family config in float32")
+                    help="reduced same-family config (float32 on the "
+                         "CPU)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8,
                     help="global batch (rows over all ranks)")
@@ -99,6 +120,21 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--ckpt-async", action="store_true",
+                    help="write periodic checkpoints off the critical "
+                         "path (host copy, then a background chunk write)")
+    ap.add_argument("--ckpt-fs3", action="store_true",
+                    help="checkpoint into an in-process 3FS cluster "
+                         "(CRAQ-replicated) under --ckpt-dir instead of "
+                         "plain files")
+    ap.add_argument("--resume-plan", action="store_true",
+                    help="allow resuming a checkpoint stamped under a "
+                         "different ParallelPlan or grid (cross-plan "
+                         "reshard of the flat masters)")
     ap.add_argument("--parallel", choices=("gspmd", "ddp"), default="gspmd",
                     help="executor: gspmd (one device) or ddp (HaiScale "
                          "DDP with HFReduce over RANK / WORLD_SIZE ranks)")
@@ -131,16 +167,46 @@ def main(argv=None):
             dist.destroy_process_group()
 
 
+def _checkpointer(args, plan, grid, state, talk):
+    """(checkpointer or None, state, step to start at)."""
+    if not args.ckpt_dir:
+        return None, state, 0
+    from repro_torch.elastic import ElasticCheckpointer, PlanMismatchError
+    backend = args.ckpt_dir
+    if args.ckpt_fs3:
+        from repro_torch.ckpt import fs3_backend
+        backend = fs3_backend(args.ckpt_dir)
+    manager = ElasticCheckpointer(backend, plan, grid)
+    if not args.resume:
+        return manager, state, 0
+    if args.resume_plan:
+        restored = manager.restore_for(plan, grid, state["params"])
+    else:
+        try:
+            restored = manager.restore_latest(state)
+        except PlanMismatchError as e:
+            raise SystemExit(f"{e}") from e
+    if restored is None:
+        return manager, state, 0
+    state, start = restored
+    if talk:
+        print(f"resumed from step {start}", flush=True)
+    return manager, state, start
+
+
 def _train(args, plan, dev, grid):
     from repro_torch.configs.registry import get_arch, smoke_config
-    from repro_torch.data.synthetic import batch_for_model
+    from repro_torch.data import make_synthetic_loader
     from repro_torch.models import build_model
     from repro_torch.optim import AdamW, warmup_cosine
     from repro_torch.parallel import plan as plan_lib
 
     cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
-    if args.smoke:
+    if args.smoke and dev.type == "cpu":
         cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    elif args.smoke:
+        # the card's flash kernels take bf16 at head dim 64 or 128
+        cfg = dataclasses.replace(cfg, d_head=max(cfg.d_head, 64))
     model = build_model(cfg)
     opt = AdamW(lr=warmup_cosine(args.lr, 5, args.steps),
                 param_dtype=cfg.compute_dtype)
@@ -150,19 +216,37 @@ def _train(args, plan, dev, grid):
     step_fn = plan_lib.make_train_step(plan, model, opt, device=dev,
                                        grid=grid)
     talk = grid is None or grid.rank == 0
+    manager, state, start = _checkpointer(args, plan, grid, state, talk)
 
+    # host numpy batches from the loader's thread; the step moves them
+    # to the device on this one
+    loader = make_synthetic_loader(cfg, args.batch, args.seq,
+                                   seed=args.seed, start_step=start)
     t0 = now()
     losses = []
-    for step in range(args.steps):
-        batch = batch_for_model(cfg, "train", step, args.batch, args.seq,
-                                seed=args.seed)
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])
-        losses.append(loss)
-        if talk:
-            print(f"step {step:5d} loss {loss:.4f} "
-                  f"({(now() - t0) / (step + 1):.3f}s/step)", flush=True)
-    if talk:
+    try:
+        for step, batch in loader:
+            if step >= args.steps:
+                break
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            if talk and (step % args.log_every == 0
+                         or step == args.steps - 1):
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"({(now() - t0) / (step - start + 1):.3f}s/step)",
+                      flush=True)
+            done = step + 1          # steps the state has taken
+            if manager and args.ckpt_every and done < args.steps and \
+                    done % args.ckpt_every == 0:
+                manager.save(state, done, blocking=not args.ckpt_async)
+    finally:
+        loader.stop()
+        if manager:
+            manager.wait()
+    if manager:
+        manager.save(state, start + len(losses), blocking=True)
+    if talk and losses:
         print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
     return losses
 

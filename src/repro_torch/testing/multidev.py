@@ -273,3 +273,84 @@ def check_all(grid, device, params_np):
     ranks."""
     return {"collectives": check_collectives(grid, device),
             "ddp": check_ddp(grid, device, params_np)}
+
+
+def check_elastic_zero1(grid, device, root):
+    """Plan-stamped ZeRO-1 checkpoints across ranks (the port's
+    counterpart of the JAX ``check_elastic_*``): gpt2-medium's smoke
+    config under ``ParallelPlan(mode="ddp", zero1=True)`` on every rank
+    of ``grid``.  Four steps straight; then two steps, an async save to
+    a 3FS root under ``root`` (rank 0 gathers the flat shards and
+    writes), the state dropped, every rank opening a fresh backend after
+    a barrier and restoring its own shard, and two more steps.  Rank 0
+    alone restores the checkpoint onto gspmd (one process, a tree
+    state) and saves that; every rank restores it back onto ZeRO-1.
+    Returns this rank's losses, step-2 / final / round-tripped shards,
+    and on rank 0 the gspmd tree's masters as one flat vector."""
+    import dataclasses as dc
+    import os
+
+    from repro_torch.ckpt import fs3_backend
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.ddp import init_zero1_state
+    from repro_torch.data.synthetic import batch_for_model
+    from repro_torch.elastic import ElasticCheckpointer, save_sharded
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel import ParallelPlan, make_train_step
+
+    cfg = dc.replace(smoke_config("gpt2-medium"), compute_dtype="float32")
+    model = build_model(cfg)
+    opt = AdamW(lr=1e-2, param_dtype="float32")
+    plan = ParallelPlan(mode="ddp", zero1=True, overlap=False)
+    step = make_train_step(plan, model, opt, device=device, grid=grid)
+    params = model.init(0, device=device)
+
+    def fresh():                  # the state adopts fp32 params: clone
+        return init_zero1_state(tree_map(torch.clone, params), opt, grid)
+
+    def run(state, steps):
+        losses = []
+        for i in steps:
+            state, m = step(state, batch_for_model(cfg, "train", i,
+                                                   2 * grid.size, 16))
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    def shard(state):
+        return np.concatenate([_np(state[k]) for k in ("master", "m", "v")])
+
+    out = {}
+    state, out["straight"] = run(fresh(), range(4))
+    out["final_straight"] = shard(state)
+    state, _ = run(fresh(), range(2))
+    ck = ElasticCheckpointer(fs3_backend(os.path.join(root, "z")), plan,
+                             grid)
+    ck.save(state, 2, blocking=False)
+    out["at_save"] = shard(state)
+    ck.wait()
+    del state, ck
+    dist.barrier(group=grid.world)           # rank 0 has written
+    ck = ElasticCheckpointer(fs3_backend(os.path.join(root, "z")), plan,
+                             grid)
+    state, out["restored_step"] = ck.restore_latest(fresh())
+    out["restored"] = shard(state)
+    out["restored_opt_step"] = int(state["step"])
+    state, out["resumed"] = run(state, range(2, 4))
+    out["final_resumed"] = shard(state)
+
+    gspmd = ParallelPlan(mode="gspmd")
+    tree_root = os.path.join(root, "tree")
+    if grid.rank == 0:
+        one = ElasticCheckpointer(fs3_backend(os.path.join(root, "z")),
+                                  gspmd, None)
+        tree, _ = one.restore_for(gspmd, None, params)
+        out["tree_master"] = np.concatenate(
+            [_np(x).reshape(-1) for x in tree_leaves(tree["master"])])
+        save_sharded(tree, gspmd, None, step=2, root_or_backend=tree_root)
+    dist.barrier(group=grid.world)
+    back, _ = ElasticCheckpointer(tree_root, plan, grid).restore_for(
+        plan, grid, params)
+    out["back"] = shard(back)
+    return out

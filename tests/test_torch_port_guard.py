@@ -29,12 +29,13 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     """Importing every module of the port in a fresh interpreter leaves
-    jax (and the JAX package) out of sys.modules."""
+    jax (and the JAX package) out of sys.modules, and msgpack and
+    ml_dtypes too: the card's machine need not have them."""
     code = ("import importlib, sys\n"
             f"for m in {_port_modules()!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro', 'msgpack', 'ml_dtypes'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -80,6 +81,38 @@ def test_guard_scans_the_ddp_slice():
               "repro_torch.kernels.quant_comm.ops",
               "repro_torch.kernels.quant_comm.ref"):
         assert m in mods, m
+
+
+def test_guard_scans_the_checkpoint_slice():
+    """The import and source scans reach 3FS, the checkpoint manager,
+    the elastic checkpointer and the prefetch loader."""
+    mods = _port_modules()
+    for m in ("repro_torch.fs3", "repro_torch.fs3.storage",
+              "repro_torch.fs3.craq", "repro_torch.fs3.codec",
+              "repro_torch.fs3.meta", "repro_torch.fs3.client",
+              "repro_torch.fs3.kv", "repro_torch.ckpt",
+              "repro_torch.ckpt.manager", "repro_torch.elastic",
+              "repro_torch.elastic.manifest", "repro_torch.elastic.reshard",
+              "repro_torch.elastic.sharded", "repro_torch.data.loader"):
+        assert m in mods, m
+
+
+# the one import of either outside the tests: the bridge's lazy import,
+# on the path that hands bf16 / e4m3 tensors to numpy (CPU tests only)
+_CARD_ABSENT_OK = {("bridge.py", "ml_dtypes")}
+
+
+def test_port_never_imports_msgpack_or_ml_dtypes():
+    """No module of the port and nothing in chip_smoke.py imports
+    msgpack or ml_dtypes (3FS packs with ``fs3/codec.py``, checkpoints
+    name dtypes by ``ckpt.manager.DTYPE_NAMES``), bar the named
+    exception, which is a lazy import inside a function."""
+    pat = re.compile(r"^(\s*)(?:import|from)\s+(msgpack|ml_dtypes)\b", re.M)
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    found = {(f.name, m.group(2)): m.group(1)
+             for f in files for m in pat.finditer(f.read_text())}
+    assert set(found) == _CARD_ABSENT_OK, found
+    assert all(indent for indent in found.values()), found
 
 
 def test_port_sources_never_name_the_jax_package():
