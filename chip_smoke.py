@@ -128,17 +128,32 @@ Phases (any failure exits non-zero and prints no result line):
 10. HaiScale DDP training: gpt2-medium at full width and depth (24
    layers, d 1024) as 8 ranks sharing the card, 2 pods x 4 data, each
    rank 2 x 1024 tokens, gloo collectives staged through pinned host
-   memory (``core.grid.Grid(stage="host")``, spawned by
+   memory (``core.grid.Grid(staging="host")``, spawned by
    ``testing.multidev.run_ranks``).  Gates on step 1's synced gradient:
    (i) uncompressed against one process on the whole global batch, (ii)
    overlap on against off, bitwise, (iii) the int8 wire through the
    kernels against the plain quantizer, bitwise, (iv) int8 against
    uncompressed within the quantization bound, (v) planted faults (the
    prescale dropped, a strong rank's shard missing from phase 3, a
-   bucket's hook one leaf early) that (i) or (ii) must catch; then 8
+   bucket's hook one leaf early) that (i) or (ii) must catch; then 3
    steps with each of the uncompressed and int8 wires (overlap on, every
    kernel's launches counted from the ranks), one with overlap off, and
    the hfreduce of the whole gradient with each wire format.
+11. HaiScale pp training: llama-13b at full width (d 5120, 40 heads of
+   128, SwiGLU 13 824, vocab 32 000, untied) with 4 of its 40 layers
+   under ``ParallelPlan(mode="pp")`` as 2 ranks sharing the card (pipe
+   2 x pod 1 x data 1, 2 layers a stage, host-staged gloo), a global
+   batch of 8 x 2048 tokens in 8 microbatches, AdamW.  Gates: (i) the
+   gradient the step hands its optimizer at step 1 (gpipe and 1f1b)
+   against one process on the whole batch, (ii) gpipe and 1f1b
+   bitwise equal over 3 steps, losses and recorded gradients, (iii)
+   planted faults (1F1B's forward storing into the ring before the
+   backward reads its slot, a cotangent send dropped, the gradients
+   not divided by the microbatch count, stage 1 slicing its layers at
+   the wrong offset) that (i) or (ii) must catch; every training
+   kernel launched.  Prints each schedule's step times, ticks, peak
+   memory per rank and the seconds in pipe sends and in the gradient
+   sum over the pipe.  The bubble is not idle time on one shared card.
 
 The kernel cases of phase 2 include both top-k gating kernels at the
 MoE shapes (qwen2-moe's decode, prefill and training rows, 64 experts
@@ -3057,7 +3072,7 @@ def ckpt_phase(dev):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:"
                             f"{free_port()}", rank=0, world_size=1)
     try:
-        grid = Grid(1, 1, stage="host")
+        grid = Grid(1, 1, staging="host")
         t0 = now()
         z, _ = ElasticCheckpointer(fs3_backend(str(roots[0])),
                                    plan).restore_for(zplan, grid,
@@ -3995,7 +4010,9 @@ def quant_phase(dev):
 # through pinned host memory over gloo (HFReduce's own path)
 DDP_ARCH = "gpt2-medium"
 DDP_PODS, DDP_DATA = 2, 4
-DDP_BATCH, DDP_SEQ, DDP_STEPS = 2, 1024, 8
+# 3 timed steps a wire: a median and every kernel's launches per step
+# within the script's time limit
+DDP_BATCH, DDP_SEQ, DDP_STEPS = 2, 1024, 3
 DDP_WIRES = ("", "bf16", "fp8", "int8")
 # gate (i), the synced uncompressed gradient against one process on the
 # global batch: the training gates above (both sides bf16; the synced one
@@ -4313,7 +4330,7 @@ def ddp_phase(dev):
     torch.cuda.empty_cache()
 
     ranks = run_ranks(ddp_rank, DDP_PODS, DDP_DATA, device=str(dev),
-                      stage="host", args=(str(ref_path),), timeout=600)
+                      staging="host", args=(str(ref_path),), timeout=600)
     ref_path.unlink()
     r0 = ranks[0][0]
     failures = []
@@ -4406,6 +4423,324 @@ def ddp_phase(dev):
                 failures.append(f"ddp {key}: kernel {k} never launched")
         out["runs"][key] = summary
         print(json.dumps({"ddp_run": key, **summary}), flush=True)
+    return out, failures
+
+
+# ------------- HaiScale pp: llama-13b at full width, 2 stages --------------
+
+# the paper's Fig. 9(a) model (LLaMa-13B, pp 4, seq 2048) at full width,
+# n_layers cut 40 -> 4 (2 a stage): the JAX contract's replicated state
+# (the whole tree on every rank) is ~1.6 B parameters x 14 bytes ~ 22 GB a
+# rank, and four stages, or two stages x two data ranks, would not fit the
+# card.  Two ranks share the card over host-staged gloo, as the DDP phase's
+PP_ARCH = "llama-13b"
+PP_LAYERS, PP_STAGES = 4, 2
+PP_BATCH, PP_SEQ, PP_MICRO, PP_STEPS = 8, 2048, 8, 3
+PP_ROOT = ROOT / "build" / "pp_phase"
+PP_SLOT_FAULT = "1F1B writes the slot before the backward reads it"
+PP_FAULTS = {
+    # fault -> (schedule it runs under, the gate that must catch it)
+    PP_SLOT_FAULT: ("1f1b", "ii"),
+    "a dropped cotangent send (the stage gets zeros)": ("1f1b", "i"),
+    "gradients not divided by m": ("1f1b", "i"),
+    "stage 1 slicing its layers at the wrong offset": ("1f1b", "i"),
+}
+
+
+def pp_config():
+    from repro_torch.configs.registry import get_arch
+    return dataclasses.replace(get_arch(PP_ARCH), n_layers=PP_LAYERS)
+
+
+def pp_global_batch(cfg, i):
+    from repro_torch.data.synthetic import batch_for_model
+    return batch_for_model(cfg, "train", i, PP_BATCH, PP_SEQ, seed=SEED)
+
+
+def pp_fault_step(fault):
+    """A ``PPStep`` subclass that plants ``fault``."""
+    import torch
+    from repro_torch.models.params import tree_map
+    from repro_torch.parallel.pp import PPStep
+
+    if fault == PP_SLOT_FAULT:
+        class Faulty(PPStep):
+            # the backward reads the ring only after the tick's forward
+            # has stored into it
+            def _saved(self, ring, t):
+                return lambda: PPStep._saved(self, ring, t)
+
+            def _backward(self, t, x_saved, *args):
+                return super()._backward(t, x_saved(), *args)
+    elif fault.startswith("a dropped cotangent"):
+        class Faulty(PPStep):
+            def _exchange(self, t, send_f, send_b, like):
+                f, b = super()._exchange(t, send_f, send_b, like)
+                return f, None if b is None else torch.zeros_like(b)
+    elif fault.startswith("gradients not divided"):
+        class Faulty(PPStep):
+            def _pipe_sum(self, *args):
+                # the step's / m then leaves the microbatches' sum
+                return tree_map(lambda g: g * self.m,
+                                super()._pipe_sum(*args))
+    else:
+        class Faulty(PPStep):
+            def _stage_params(self, layers):
+                if self.grid.stage == 1:
+                    return {k: v[:self.lps] for k, v in layers.items()}
+                return super()._stage_params(layers)
+    return Faulty
+
+
+def pp_rank(grid, device, ref_path):
+    """One rank of the pp phase: PP_STEPS steps under gpipe, then under
+    1f1b, each from the same initial state through
+    ``parallel.make_train_step`` with the optimizer recording the
+    gradient it is handed; then one step of each planted fault.  Rank 0
+    keeps host copies of gpipe's recorded gradients and holds the other
+    runs against them bitwise (gate ii), and step 1's against the
+    one-process reference in ``ref_path`` (gate i).  Returns numbers
+    only."""
+    import statistics
+
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.parallel import ParallelPlan, init_state, \
+        make_train_step
+    from repro_torch.telemetry import get_registry, now
+    from repro_torch.testing.multidev import _Recording
+    dev = torch.device(device)
+    cfg = pp_config()
+    model = build_model(cfg)
+    ref = torch.load(ref_path) if grid.rank == 0 else None
+    keep = grid.rank == 0
+    gpipe_grads = []
+
+    def fresh(plan):
+        opt = _Recording(AdamW(lr=warmup_cosine(3e-4, 2, PP_STEPS)))
+        params = model.init(SEED, device=dev, dtype="bfloat16")
+        return opt, init_state(plan, opt.opt, params, grid=grid)
+
+    def gate_i(state, loss):
+        if ref is None:
+            return None
+        return {"loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+                "grad_rel": _rel_leaves(state["synced"], ref["grads"])}
+
+    def same_as_gpipe(state, i):
+        if not keep:
+            return None
+        return all(torch.equal(g.cpu(), h) for g, h in
+                   zip(tree_leaves(state["synced"]), gpipe_grads[i]))
+
+    out = {"rank": grid.rank, "stage": grid.stage, "runs": {}}
+    for schedule in ("gpipe", "1f1b"):
+        plan = ParallelPlan(mode="pp", pp_schedule=schedule,
+                            pp_microbatches=PP_MICRO)
+        opt, state = fresh(plan)
+        step = make_train_step(plan, model, opt, device=dev, grid=grid)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        get_registry().reset()
+        reset_launch_counts()
+        run = {"ticks": step_ticks(plan), "losses": [], "step_s": [],
+               "bitwise_to_gpipe": []}
+        for i in range(PP_STEPS):
+            batch = pp_global_batch(cfg, i)
+            torch.cuda.synchronize()
+            t0 = now()
+            state, m = step(state, batch)
+            loss = float(m["loss"])
+            run["step_s"].append(now() - t0)
+            run["losses"].append(loss)
+            if i == 0:
+                run["gate_i"] = gate_i(state, loss)
+            if keep and schedule == "gpipe":
+                gpipe_grads.append([g.cpu() for g in
+                                    tree_leaves(state["synced"])])
+            elif schedule != "gpipe":
+                run["bitwise_to_gpipe"].append(same_as_gpipe(state, i))
+        reg = get_registry()
+        run.update({
+            "median_step_s": statistics.median(run["step_s"]),
+            "launches": launch_counts(),
+            "train_step_spans": reg.histogram("span.train.step").count,
+            "spans_s": {k: reg.histogram(f"span.{k}").sum
+                        for k in ("pp.send", "pp.grad_sum", "train.step")},
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+        out["runs"][schedule] = run
+        del state, step, opt
+        torch.cuda.empty_cache()
+
+    faults = {}
+    for fault, (schedule, gate) in PP_FAULTS.items():
+        plan = ParallelPlan(mode="pp", pp_schedule=schedule,
+                            pp_microbatches=PP_MICRO)
+        opt, state = fresh(plan)
+        state, m = pp_fault_step(fault)(model, opt, grid, plan, dev)(
+            state, pp_global_batch(cfg, 0))
+        gi = gate_i(state, float(m["loss"]))
+        faults[fault] = {"gate": gate, "bitwise_to_gpipe":
+                         same_as_gpipe(state, 0),
+                         "grad_rel_max": None if gi is None
+                         else max(gi["grad_rel"]),
+                         "loss_rel": None if gi is None else gi["loss_rel"]}
+        del state, opt
+        torch.cuda.empty_cache()
+    out["faults"] = faults
+    return out
+
+
+def step_ticks(plan):
+    """Ticks of a pp step on PP_STAGES stages (JAX's schedule)."""
+    off = 2 * PP_STAGES - 1 if plan.pp_schedule == "1f1b" else \
+        plan.pp_microbatches + 2 * PP_STAGES - 2
+    return plan.pp_microbatches + off
+
+
+def pp_phase(dev):
+    """llama-13b at full width with PP_LAYERS layers trains under
+    ``ParallelPlan(mode="pp")`` as PP_STAGES ranks sharing the card (pipe
+    2 x pod 1 x data 1, ``run_ranks(..., pipe=2)``, gloo staged through
+    pinned host memory), a global batch of PP_BATCH x PP_SEQ tokens in
+    PP_MICRO microbatches.  First the parent runs PP_STEPS steps of the
+    one-device step on the whole batch (then frees them): step 1's
+    gradient is the reference of gate (i), and the losses are printed
+    beside the pp runs'.  Gates: (i) the gradient the pp step hands
+    its optimizer at step 1 within TRAIN_GRAD_REL_TOL per leaf and the
+    loss within TRAIN_LOSS_REL_TOL (gpipe and 1f1b); (ii) gpipe and
+    1f1b give bitwise equal losses and recorded gradients over
+    PP_STEPS steps; (iii) the planted faults of PP_FAULTS fail their
+    gate; every training kernel launched in each run.  On one shared
+    card the pipeline's bubble is not idle time (the other stage's rank
+    fills the card), so these step times do not measure pipeline
+    scaling.  Returns (results, failures)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.parallel import ParallelPlan, init_state, \
+        make_train_step
+    from repro_torch.parallel.pp import bubble_fraction, \
+        peak_live_activations
+    from repro_torch.testing.multidev import _Recording, run_ranks
+    cfg = pp_config()
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev, dtype="bfloat16")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    names = _leaf_names(params)
+    PP_ROOT.mkdir(parents=True, exist_ok=True)
+    ref_path = PP_ROOT / "reference.pt"
+    # the one-device step with the same optimizer on the whole batch:
+    # step 1's gradient is gate (i)'s reference, its losses are printed
+    # beside the pp runs'
+    one = ParallelPlan()
+    opt = _Recording(AdamW(lr=warmup_cosine(3e-4, 2, PP_STEPS)))
+    state = init_state(one, opt.opt, params)
+    step = make_train_step(one, model, opt, device=dev)
+    one_losses = []
+    for i in range(PP_STEPS):
+        state, m = step(state, pp_global_batch(cfg, i))
+        one_losses.append(float(m["loss"]))
+        if i == 0:
+            torch.save({"loss": one_losses[0],
+                        "grads": [g.cpu() for g in
+                                  tree_leaves(state["synced"])]}, ref_path)
+    del params, state, step, opt, m
+    torch.cuda.empty_cache()
+    try:
+        ranks = run_ranks(pp_rank, 1, 1, device=str(dev), staging="host",
+                          args=(str(ref_path),), timeout=900,
+                          pipe=PP_STAGES)
+    finally:
+        ref_path.unlink()
+    r0 = ranks[0][0]
+    failures = []
+    tokens = PP_BATCH * PP_SEQ
+    flops = 6 * n_params * tokens + 12 * cfg.n_layers * cfg.n_heads * \
+        cfg.head_dim * PP_BATCH * causal_pairs(PP_SEQ, PP_SEQ, 0, PP_SEQ)
+    out = {"arch": PP_ARCH, "layers": PP_LAYERS, "params": n_params,
+           "stages": PP_STAGES, "pods": 1, "data": 1, "batch": PP_BATCH,
+           "seq": PP_SEQ, "microbatches": PP_MICRO, "steps": PP_STEPS,
+           "model_flops_per_step": flops, "one_process_losses": one_losses,
+           "runs": {}}
+    for schedule, run in r0["runs"].items():
+        all_runs = [r["runs"][schedule] for r, _ in ranks]
+        plan = ParallelPlan(mode="pp", pp_schedule=schedule,
+                            pp_microbatches=PP_MICRO)
+        gi = run["gate_i"]
+        worst = max(range(len(gi["grad_rel"])),
+                    key=lambda i: gi["grad_rel"][i])
+        summary = {
+            "ticks": run["ticks"], "losses": run["losses"],
+            "loss_rel_to_one_process": [abs(a - b) / abs(b) for a, b in
+                                        zip(run["losses"], one_losses)],
+            "step_s": run["step_s"], "median_step_s": run["median_step_s"],
+            "tokens_per_s": tokens / run["median_step_s"],
+            "mfu_vs_bf16_dense_peak":
+                flops / run["median_step_s"] / PEAK["bf16_tensor"],
+            "bubble_fraction": bubble_fraction(PP_STAGES, PP_MICRO,
+                                               schedule),
+            "live_activation_slots": peak_live_activations(
+                PP_STAGES, PP_MICRO, schedule),
+            "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in all_runs],
+            "spans_s_per_step_per_rank": [
+                {k: v / PP_STEPS for k, v in r["spans_s"].items()}
+                for r in all_runs],
+            "launches_per_step": {
+                k: sum(r["launches"][k] for r in all_runs) / PP_STEPS
+                for k in TRAIN_KERNELS},
+            "launches": {k: sum(r["launches"][k] for r in all_runs)
+                         for k in run["launches"]},
+            "gate_i": {"loss_rel": gi["loss_rel"],
+                       "grad_rel_max": gi["grad_rel"][worst],
+                       "grad_rel_max_leaf": names[worst],
+                       "ok": gi["loss_rel"] <= TRAIN_LOSS_REL_TOL and
+                       max(gi["grad_rel"]) <= TRAIN_GRAD_REL_TOL}}
+        if schedule != "gpipe":
+            summary["gate_ii"] = {
+                "losses_bitwise": run["losses"] ==
+                r0["runs"]["gpipe"]["losses"],
+                "grads_bitwise_per_step": run["bitwise_to_gpipe"]}
+            if not (summary["gate_ii"]["losses_bitwise"]
+                    and all(run["bitwise_to_gpipe"])):
+                failures.append(f"pp: gpipe and {schedule} differ (gate "
+                                f"ii): {summary['gate_ii']}")
+        if not summary["gate_i"]["ok"]:
+            failures.append(f"pp {schedule}: recorded gradient vs one "
+                            f"process (gate i): {summary['gate_i']}")
+        if not all(math.isfinite(x) for x in run["losses"]):
+            failures.append(f"pp {schedule}: losses not finite")
+        for r in all_runs:
+            if r["train_step_spans"] != PP_STEPS:
+                failures.append(f"pp {schedule}: {r['train_step_spans']} of "
+                                f"{PP_STEPS} steps ran through "
+                                "parallel.make_train_step")
+        for k in TRAIN_KERNELS:
+            if summary["launches"].get(k, 0) <= 0:
+                failures.append(f"pp {schedule}: kernel {k} never launched")
+        out["runs"][schedule] = summary
+        print(json.dumps({"pp_run": schedule, **summary}), flush=True)
+    ctl = []
+    for fault, rec in r0["faults"].items():
+        by = {"i": rec["grad_rel_max"] > TRAIN_GRAD_REL_TOL
+              or rec["loss_rel"] > TRAIN_LOSS_REL_TOL,
+              "ii": not rec["bitwise_to_gpipe"]}
+        row = {"fault": fault, "gate": rec["gate"],
+               "grad_rel_max": rec["grad_rel_max"],
+               "loss_rel": rec["loss_rel"],
+               "bitwise_to_gpipe": rec["bitwise_to_gpipe"],
+               "caught_by": [g for g, c in by.items() if c],
+               "caught": by[rec["gate"]]}
+        ctl.append(row)
+        if not row["caught"]:
+            failures.append(f"pp: planted fault '{fault}' passed gate "
+                            f"({rec['gate']})")
+    out["controls"] = ctl
+    print(json.dumps({"pp_controls": ctl}), flush=True)
     return out, failures
 
 
@@ -4556,6 +4891,9 @@ def main():
     torch.cuda.empty_cache()
     ddp, ddp_failures = timed("ddp training", lambda: ddp_phase(dev))
     failures += ddp_failures
+    torch.cuda.empty_cache()
+    pp, pp_failures = timed("pp training", lambda: pp_phase(dev))
+    failures += pp_failures
 
     # representative main-path case of each kernel: the decode tick for
     # rmsnorm (8 slots), paged attention (T = 1, bs 16, bf16) and top-k
@@ -4602,6 +4940,13 @@ def main():
                 runs[label] = run["launches"][name]
                 per_step[f"{label} (per step)"] = \
                     run["launches"][name] / DDP_STEPS
+        for key, run in pp["runs"].items():
+            if run["launches"].get(name, 0):
+                label = f"{PP_ARCH} {PP_LAYERS} layers pp {key} " \
+                        f"{PP_STEPS} steps, {PP_STAGES} stages"
+                runs[label] = run["launches"][name]
+                per_step[f"{label} (per step)"] = \
+                    run["launches"][name] / PP_STEPS
         summary.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces,
@@ -4629,6 +4974,7 @@ def main():
                                "losses", "launches_per_step")}}),
             flush=True)
     print(json.dumps({"ddp_summary": ddp}), flush=True)
+    print(json.dumps({"pp_summary": {"card": card, **pp}}), flush=True)
     print(json.dumps({"ckpt_summary": {"card": card, **{
         k: ckpt.get(k) for k in ("arch", "layers", "params", "state_bytes",
                                  "free_disk_bytes", "save", "restore",

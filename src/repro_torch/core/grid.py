@@ -1,23 +1,30 @@
-"""The ("pod", "data") grid of a HaiScale DDP run over
-``torch.distributed``: the counterpart of the JAX mesh's two batch axes.
+"""The ("pipe", "pod", "data") grid of a HaiScale run over
+``torch.distributed``: the counterpart of the JAX launcher's mesh.
 
-``Grid(pods, data)`` splits the world of ``pods * data`` ranks into one
-*strong* group per pod (the ranks of one pod: the intra-node fabric in
-the paper, the "data" axis) and one *weak* group per data index (rank j
-of every pod: the cross-pod link, the "pod" axis).  Rank r is pod
-r // data and data index r % data — the pod-major order of
-``P(("pod", "data"))`` — so rank r holds the same batch rows as JAX
-device r.  ``grid.world`` is a group of all ranks.
+``Grid(pods, data, pipe=1)`` splits the world of ``pipe * pods * data``
+ranks into ``pipe`` stages of ``pods * data`` ranks.  Rank r is stage
+r // (pods * data), then pod, then data index — the device order of the
+JAX launcher's mesh ``("pipe", "pod", "data")`` (``("pod", "data")``
+when pipe is 1) — so rank r holds the same batch rows as JAX device r.
+Within its stage a rank has one *strong* group (the ranks of its pod:
+the intra-node fabric in the paper, the "data" axis), one *weak* group
+(its data index in every pod of the stage: the cross-pod link, the
+"pod" axis) and ``world``, the stage's ranks (the batch axes);
+``grid.pipe`` is the group of the ranks at its (pod, data) position
+across the stages, ordered by stage.  ``grid.size`` counts a stage's
+ranks (the batch shards), ``grid.ranks`` all of them, and ``grid.all``
+is a group of every rank (``world`` itself when pipe is 1).  The JAX
+``axis_size`` of an axis is its group's size.
 
 The collectives below take a ``ProcessGroup`` where the JAX functions
 take an axis name, and return new tensors as the JAX ones do:
 ``all_reduce``, ``reduce_scatter`` (tiled, as ``psum_scatter``),
 ``all_gather`` (tiled), ``all_to_all`` (split and concatenated on dim
-0) and ``ppermute`` (pairs of group ranks, zeros where nothing
-arrives).
+0), ``ppermute`` (pairs of group ranks) and ``sendrecv`` (one batch of
+point-to-point sends and receives).
 
 Staging.  The backend is gloo, which moves host memory.
-``stage="host"`` is HFReduce's own path (paper §IV): a CUDA tensor is
+``staging="host"`` is HFReduce's own path (paper §IV): a CUDA tensor is
 copied to pinned host memory, the collective runs on the host, and the
 result is copied back to the card; what happens between collectives
 (quantize, dequantize, the local sum) stays on the card.  The caller
@@ -34,61 +41,80 @@ import socket
 import torch
 import torch.distributed as dist
 
-STAGES = (None, "host")
-_STAGE: dict = {}           # ProcessGroup -> its staging (None or "host")
+STAGINGS = (None, "host")
+_STAGING: dict = {}         # ProcessGroup -> its staging (None or "host")
 
 
 class Grid:
-    """Process groups of a pods x data grid; needs an initialised
-    default process group of ``pods * data`` ranks.  Every rank must
-    build the grid, in the same order as every other group it builds."""
+    """Process groups of a pipe x pods x data grid; needs an initialised
+    default process group of ``pipe * pods * data`` ranks.  Every rank
+    must build the grid, in the same order as every other group it
+    builds."""
 
-    def __init__(self, pods: int, data: int, backend: str = "gloo",
-                 stage=None):
+    def __init__(self, pods: int, data: int, pipe: int = 1,
+                 backend: str = "gloo", staging=None):
         if backend == "nccl":
             raise NotImplementedError(
                 "Grid(backend='nccl') is not ported yet: one rank per card "
                 "with collectives on the card waits for a machine with two "
                 "or more cards (ROADMAP A7, nccl backend); use "
-                "backend='gloo' with stage='host'")
+                "backend='gloo' with staging='host'")
         if backend != "gloo":
             raise ValueError(f"backend={backend!r}; want 'gloo'")
-        if stage not in STAGES:
-            raise ValueError(f"stage={stage!r}; want one of {STAGES}")
+        if staging not in STAGINGS:
+            raise ValueError(f"staging={staging!r}; want one of {STAGINGS}")
         if not dist.is_initialized():
             raise RuntimeError("Grid needs torch.distributed initialised "
                                "(init_process_group) first")
         world = dist.get_world_size()
-        if world != pods * data:
-            raise ValueError(f"{pods} pods x {data} data = {pods * data} "
-                             f"ranks, but the world has {world}")
-        self.pods, self.data, self.stage = pods, data, stage
-        self.size = world
+        if world != pipe * pods * data:
+            raise ValueError(f"{pipe} stages x {pods} pods x {data} data = "
+                             f"{pipe * pods * data} ranks, but the world "
+                             f"has {world}")
+        self.stages, self.pods, self.data = pipe, pods, data
+        self.staging = staging
+        self.size = pods * data
+        self.ranks = world
         self.rank = dist.get_rank()
-        self.pod, self.data_index = divmod(self.rank, data)
-        self.world = self._group(list(range(world)))
-        for p in range(pods):
-            g = self._group([p * data + j for j in range(data)])
-            if p == self.pod:
-                self.strong = g
-        for j in range(data):
-            g = self._group([p * data + j for p in range(pods)])
-            if j == self.data_index:
-                self.weak = g
+        self.stage, shard = divmod(self.rank, self.size)
+        self.pod, self.data_index = divmod(shard, data)
+        if pipe > 1:
+            self.all = self._group(list(range(world)))
+        for s in range(pipe):
+            base = s * self.size
+            g = self._group(list(range(base, base + self.size)))
+            if s == self.stage:
+                self.world = g
+            for p in range(pods):
+                g = self._group([base + p * data + j for j in range(data)])
+                if (s, p) == (self.stage, self.pod):
+                    self.strong = g
+            for j in range(data):
+                g = self._group([base + p * data + j for p in range(pods)])
+                if (s, j) == (self.stage, self.data_index):
+                    self.weak = g
+        if pipe == 1:
+            self.all = self.world
+        for k in range(self.size):
+            g = self._group([s * self.size + k for s in range(pipe)])
+            if k == shard:
+                self.pipe = g
 
     def _group(self, ranks):
         g = dist.new_group(ranks, backend="gloo")
         if self.rank in ranks:
-            _STAGE[g] = self.stage
+            _STAGING[g] = self.staging
         return g
 
     def rows(self, n: int) -> slice:
-        """This rank's rows of a global batch of ``n`` rows."""
+        """This rank's rows of a global batch of ``n`` rows (split over
+        a stage's ranks; every stage holds the same rows)."""
         if n % self.size:
             raise ValueError(f"a global batch of {n} rows does not split "
                              f"over {self.size} ranks")
         per = n // self.size
-        return slice(self.rank * per, (self.rank + 1) * per)
+        shard = self.rank % self.size
+        return slice(shard * per, (shard + 1) * per)
 
 
 def free_port() -> int:
@@ -101,10 +127,10 @@ def free_port() -> int:
 def _staged(x, group) -> bool:
     if not x.is_cuda:
         return False
-    if _STAGE.get(group) == "host":
+    if _STAGING.get(group) == "host":
         return True
     raise ValueError("a CUDA tensor reached a gloo group without staging; "
-                     "build the Grid with stage='host'")
+                     "build the Grid with staging='host'")
 
 
 def _host(x):
@@ -162,26 +188,37 @@ def all_to_all(x, group):
                                                         group=group))
 
 
+def sendrecv(group, sends=(), recvs=()):
+    """One batch of point-to-point transfers over ``group``: ``sends``
+    are (tensor, destination group rank) pairs, ``recvs`` (like,
+    source group rank) pairs, where ``like`` gives the shape, dtype and
+    device of the tensor to receive.  Returns the received tensors in
+    ``recvs``' order, complete (on a staged group: on ``like``'s
+    device)."""
+    ops, got = [], []
+    for x, d in sends:
+        src = _host(x) if _staged(x, group) else x.contiguous()
+        ops.append(dist.P2POp(dist.isend, src,
+                              dist.get_global_rank(group, d), group))
+    for like, s in recvs:
+        staged = _staged(like, group)
+        buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=staged,
+                          device="cpu" if staged else like.device)
+        ops.append(dist.P2POp(dist.irecv, buf,
+                              dist.get_global_rank(group, s), group))
+        got.append((buf, staged, like.device))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [buf.to(dev, non_blocking=True) if staged else buf
+            for buf, staged, dev in got]
+
+
 def ppermute(x, group, pairs):
     """Send ``x`` from src to dst for each (src, dst) of group ranks;
     returns what arrived here, or None where nothing did."""
     me = dist.get_rank(group)
-    staged = _staged(x, group)
-    src = _host(x) if staged else x.contiguous()
-    recv, ops = None, []
-    for s, d in pairs:
-        if s == me:
-            ops.append(dist.P2POp(dist.isend, src,
-                                  dist.get_global_rank(group, d), group))
-        if d == me:
-            recv = torch.empty(x.shape, dtype=x.dtype,
-                               pin_memory=staged,
-                               device="cpu" if staged else x.device)
-            ops.append(dist.P2POp(dist.irecv, recv,
-                                  dist.get_global_rank(group, s), group))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    if recv is not None and staged:
-        recv = recv.to(x.device, non_blocking=True)
-    return recv
+    sends = [(x, d) for s, d in pairs if s == me]
+    recvs = [(x, s) for s, d in pairs if d == me]
+    got = sendrecv(group, sends, recvs)
+    return got[0] if got else None

@@ -16,8 +16,10 @@ stamped alongside.
 The port has no mesh: the layout comes from the plan and the run's
 ``core.grid.Grid``, named as the JAX launcher's ``build_mesh`` names
 its mesh — ``("data", "model")`` of shape ``(1, 1)`` for one device
-(gspmd), ``("pod", "data")`` of shape ``(pods, data)`` for ddp — so the
-manifest of a run reads as the JAX package's of the same layout.
+(gspmd), ``("pod", "data")`` of shape ``(pods, data)`` for ddp,
+``("pipe", "pod", "data")`` of shape ``(stages, pods, data)`` for pp —
+so the manifest of a run reads as the JAX package's of the same
+layout.
 """
 from __future__ import annotations
 
@@ -54,9 +56,12 @@ def plans_equal(plan: ParallelPlan, stamped: dict) -> bool:
 
 def mesh_to_dict(plan: ParallelPlan, grid=None) -> dict:
     """The run's layout as the JAX launcher's mesh names it."""
-    if plan.mode == "ddp":
+    if plan.mode in ("ddp", "pp"):
         if grid is None:
-            raise ValueError("a ddp layout needs the run's grid")
+            raise ValueError(f"a {plan.mode} layout needs the run's grid")
+        if plan.mode == "pp":
+            return {"axes": ["pipe", "pod", "data"],
+                    "shape": [grid.stages, grid.pods, grid.data]}
         return {"axes": ["pod", "data"], "shape": [grid.pods, grid.data]}
     return {"axes": ["data", "model"], "shape": [1, 1]}
 

@@ -15,12 +15,13 @@
 Ranks.  A ZeRO-1 shard lives in its own process (``core/ddp.py``), so
 the save is collective: each rank copies its flat slices to host, rank
 0 gathers every rank's over the grid's gloo group and is the one writer
-(replicated state needs no gather: rank 0 writes it, the others return
-at once).  A restore reads on every rank after a barrier (rank 0's
-pending writes joined first), each rank cutting its own slice from the
-canonical flats: every rank reads the files in parallel, where reading
-on rank 0 and scattering would push the whole optimizer state through
-one process and gloo.  A rank opens its backend after the writes it
+(replicated state needs no gather: rank 0 of the whole grid, every
+pipeline stage's ranks included, writes it, and the others return at
+once).  A restore reads on every rank after a barrier over every rank
+(rank 0's pending writes joined first), each rank cutting its own slice
+from the canonical flats: every rank reads the files in parallel, where
+reading on rank 0 and scattering would push the whole optimizer state
+through one process and gloo.  A rank opens its backend after the writes it
 reads (a 3FS backend sees the namespace as it was when opened).
 
 The pipeline stays off the critical path: the host copy (and the
@@ -56,7 +57,7 @@ def _is_zero1_flat(plan, state) -> bool:
 
 
 def _multi(grid) -> bool:
-    return grid is not None and grid.size > 1
+    return grid is not None and grid.ranks > 1
 
 
 def _rank_offsets(params, grid) -> list:
@@ -164,7 +165,7 @@ class ElasticCheckpointer(CheckpointManager):
         """Rank 0's writes done and seen by every rank."""
         self.wait()
         if _multi(self.grid):
-            dist.barrier(group=self.grid.world)
+            dist.barrier(group=self.grid.all)
 
     def latest_step(self):
         self._sync()

@@ -1,5 +1,5 @@
-"""Training entry point of the port: one device (gspmd) or HaiScale DDP
-with HFReduce over ranks (ddp).
+"""Training entry point of the port: one device (gspmd), HaiScale DDP
+with HFReduce over ranks (ddp), or the pipelined path (pp).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \\
       --smoke --device cpu --steps 5 --batch 4 --seq 64
@@ -8,6 +8,10 @@ with HFReduce over ranks (ddp).
   PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
       --arch gpt2-medium --smoke --device cpu --parallel ddp --pods 2 \\
       --compress int8 --steps 5 --batch 16 --seq 64
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch phi4-mini-3.8b --smoke --device cpu --parallel pp \\
+      --pp-stages 2 --pp-schedule 1f1b --pp-microbatches 4 --steps 5 \\
+      --batch 16 --seq 64
 
 Runs on the card by default (``--device cuda``) and stops with an error
 when there is none; ``--device cpu`` runs the plain PyTorch path.
@@ -29,6 +33,15 @@ share one card.  ``--compress``, ``--bucket-mb``, ``--zero1`` and
 ``--no-overlap`` shape the gradient sync and are refused with
 ``--parallel gspmd``, as the JAX launcher refuses them.
 
+``--parallel pp`` joins the ranks the same way and runs GPipe or 1F1B
+(``--pp-schedule``, ``--pp-microbatches`` a rank's batch is cut into)
+over ``--pp-stages`` stages (default, as the JAX launcher's: the largest
+count that divides both the model's layers and the world) on the grid
+the JAX launcher's ``build_mesh`` builds: stages x 1 pod x world /
+stages (``parallel/pp.py``).  ``--compress`` and ``--bucket-mb`` shape
+the sync over a stage's ranks; ``--zero1``, ``--no-overlap`` and
+``--pods`` apply to ddp only.
+
 Checkpoints, as the JAX launcher writes them: ``--ckpt-dir`` builds an
 ``elastic.ElasticCheckpointer`` (plan-stamped steps, ``plan.json``
 beside each ``index.json``), on plain files or, with ``--ckpt-fs3``, on
@@ -39,8 +52,8 @@ blocking one at the end.  A checkpoint's step is the number of steps
 its state has taken, so ``--resume`` restores the latest one and starts
 the loader (``data.make_synthetic_loader``, a prefetching thread) at
 that step; a checkpoint stamped under another plan is refused unless
-``--resume-plan`` reshards it onto this run's.  The pipelined path and
-its ``--pp-*`` flags are ROADMAP A13, ``--trace`` A14.
+``--resume-plan`` reshards it onto this run's.  Under ddp and pp rank 0
+of the whole grid writes.  ``--trace`` is ROADMAP A14.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \\
       --smoke --device cpu --steps 4 --ckpt-dir /tmp/ck --ckpt-fs3 \\
@@ -68,21 +81,32 @@ def build_plan(args):
                            (args.no_overlap, "--no-overlap")):
             if flag:
                 raise SystemExit(f"{name} applies to --parallel ddp only")
+    if args.parallel == "gspmd":
         if args.compress or args.bucket_mb:
             raise SystemExit("--compress/--bucket-mb apply to the "
-                             "explicit path (--parallel ddp) only")
+                             "explicit paths (--parallel ddp/pp) only")
         return ParallelPlan(mode="gspmd", tp=1, fsdp=False, zero1=False,
                             batch_axes=("data",),
                             microbatch=args.microbatch)
-    return ParallelPlan(mode="ddp", batch_axes=("pod", "data"),
+    if args.parallel == "ddp":
+        return ParallelPlan(mode="ddp", batch_axes=("pod", "data"),
+                            compress=args.compress,
+                            bucket_bytes=bucket_bytes,
+                            overlap=not args.no_overlap and not args.zero1,
+                            zero1=args.zero1)
+    if args.pods != 1:
+        raise SystemExit("--pods applies to --parallel ddp only (the pp "
+                         "grid has one pod, as the JAX launcher's mesh)")
+    return ParallelPlan(mode="pp", batch_axes=("pod", "data"),
                         compress=args.compress, bucket_bytes=bucket_bytes,
-                        overlap=not args.no_overlap and not args.zero1,
-                        zero1=args.zero1)
+                        pp_schedule=args.pp_schedule,
+                        pp_microbatches=args.pp_microbatches)
 
 
-def _grid(args, dev):
-    """Join (or start) the process group and build the pods x data
-    grid; returns (grid, whether this call started the group)."""
+def _grid(args, dev, n_layers):
+    """Join (or start) the process group and build the grid: pods x data
+    for ddp, stages x 1 pod x world / stages for pp; returns (grid,
+    whether this call started the group)."""
     import torch.distributed as dist
 
     from repro_torch.core.grid import Grid, free_port
@@ -100,14 +124,24 @@ def _grid(args, dev):
         raise SystemExit(f"RANK/WORLD_SIZE {rank}/{world} disagree with the "
                          f"process group ({dist.get_rank()}/"
                          f"{dist.get_world_size()})")
+    staging = "host" if dev.type == "cuda" else None
+    if args.parallel == "pp":
+        stages = args.pp_stages or max(
+            d for d in range(1, world + 1)
+            if n_layers % d == 0 and world % d == 0)
+        if world % stages:
+            raise SystemExit(f"--pp-stages {stages} does not divide the "
+                             f"world of {world} ranks")
+        return Grid(1, world // stages, stages, staging=staging), started
     if world % args.pods:
         raise SystemExit(f"--pods {args.pods} does not divide the world of "
                          f"{world} ranks")
-    return Grid(args.pods, world // args.pods,
-                stage="host" if dev.type == "cuda" else None), started
+    return Grid(args.pods, world // args.pods, staging=staging), started
 
 
-def main(argv=None):
+def parser():
+    """The launcher's flags (those of the JAX launcher, bar ``--trace``
+    and the deprecated ``--ddp``, plus ``--pods`` and ``--device``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -135,32 +169,47 @@ def main(argv=None):
                     help="allow resuming a checkpoint stamped under a "
                          "different ParallelPlan or grid (cross-plan "
                          "reshard of the flat masters)")
-    ap.add_argument("--parallel", choices=("gspmd", "ddp"), default="gspmd",
-                    help="executor: gspmd (one device) or ddp (HaiScale "
-                         "DDP with HFReduce over RANK / WORLD_SIZE ranks)")
+    ap.add_argument("--parallel", choices=("gspmd", "ddp", "pp"),
+                    default="gspmd",
+                    help="executor: gspmd (one device), ddp (HaiScale "
+                         "DDP with HFReduce over RANK / WORLD_SIZE ranks) "
+                         "or pp (GPipe / 1F1B over those ranks)")
     ap.add_argument("--pods", type=int, default=1,
                     help="ddp: pods the ranks split into (weak link "
                          "between them)")
     ap.add_argument("--compress", default="",
                     choices=("", "bf16", "fp8", "int8"),
-                    help="ddp: cross-pod wire format")
+                    help="ddp, pp: cross-pod wire format")
     ap.add_argument("--bucket-mb", type=int, default=0,
-                    help="ddp: gradient bucket size (default 25 MB)")
+                    help="ddp, pp: gradient bucket size (default 25 MB)")
     ap.add_argument("--zero1", action="store_true",
                     help="ddp: shard fp32 masters and moments (ZeRO-1)")
     ap.add_argument("--no-overlap", action="store_true",
                     help="ddp: sync the buckets after the backward")
+    ap.add_argument("--pp-stages", type=int, default=0,
+                    help="pp: pipeline stages (default: the largest count "
+                         "dividing both the layers and the world)")
+    ap.add_argument("--pp-schedule", choices=("gpipe", "1f1b"),
+                    default="1f1b")
+    ap.add_argument("--pp-microbatches", type=int, default=4,
+                    help="pp: microbatches a rank's batch is cut into")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
     plan = build_plan(args)
 
     from repro_torch.device import resolve_device
 
     dev = resolve_device(args.device)
-    grid, started = _grid(args, dev) if plan.mode == "ddp" else (None, False)
+    cfg = _config(args, dev)
+    grid, started = _grid(args, dev, cfg.n_layers) \
+        if plan.mode in ("ddp", "pp") else (None, False)
     try:
-        return _train(args, plan, dev, grid)
+        return _train(args, cfg, plan, dev, grid)
     finally:
         if started:
             import torch.distributed as dist
@@ -194,19 +243,23 @@ def _checkpointer(args, plan, grid, state, talk):
     return manager, state, start
 
 
-def _train(args, plan, dev, grid):
+def _config(args, dev):
     from repro_torch.configs.registry import get_arch, smoke_config
+    cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
+    if args.smoke and dev.type == "cpu":
+        return dataclasses.replace(cfg, compute_dtype="float32")
+    if args.smoke:
+        # the card's flash kernels take bf16 at head dim 64 or 128
+        return dataclasses.replace(cfg, d_head=max(cfg.d_head, 64))
+    return cfg
+
+
+def _train(args, cfg, plan, dev, grid):
     from repro_torch.data import make_synthetic_loader
     from repro_torch.models import build_model
     from repro_torch.optim import AdamW, warmup_cosine
     from repro_torch.parallel import plan as plan_lib
 
-    cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
-    if args.smoke and dev.type == "cpu":
-        cfg = dataclasses.replace(cfg, compute_dtype="float32")
-    elif args.smoke:
-        # the card's flash kernels take bf16 at head dim 64 or 128
-        cfg = dataclasses.replace(cfg, d_head=max(cfg.d_head, 64))
     model = build_model(cfg)
     opt = AdamW(lr=warmup_cosine(args.lr, 5, args.steps),
                 param_dtype=cfg.compute_dtype)

@@ -2,14 +2,15 @@
 devices (port of ``repro/parallel/plan.py``).
 
 The dataclass is a copy of the JAX package's, fields and validation
-alike, so a plan reads the same in both packages.  Two executors are
-ported: ``mode="gspmd"`` on one device (``train_lib.make_train_step``)
-and ``mode="ddp"``, HaiScale DDP with HFReduce over the ranks of a
-``core.grid.Grid`` (``core/ddp.py``; ``zero1`` acts there).  ``"pp"``
-(the pipelined path, ROADMAP A13) raises ``NotImplementedError``.  There
-is no mesh in the port, so the JAX plan's ``mesh_batch_axes`` is not
-copied: the grid's ("pod", "data") groups are the batch axes.  The knobs
-that split work or state over devices in ways not ported (``tp``,
+alike, so a plan reads the same in both packages.  All three executors
+are ported: ``mode="gspmd"`` on one device
+(``train_lib.make_train_step``), ``mode="ddp"``, HaiScale DDP with
+HFReduce over the ranks of a ``core.grid.Grid`` (``core/ddp.py``;
+``zero1`` acts there), and ``mode="pp"``, GPipe or 1F1B over the grid's
+pipe axis with HFReduce over each stage's ranks (``parallel/pp.py``).
+There is no mesh in the port, so the JAX plan's ``mesh_batch_axes`` is
+not copied: the grid's ("pod", "data") groups are the batch axes.  The
+knobs that split work or state over devices in ways not ported (``tp``,
 ``ep``, ``opt_shard_model``, ``seq_shard``; ``zero1`` outside ddp)
 raise unless they keep their one-device values.  ``fsdp`` shards params
 over the batch axes, which on one device hold the whole of every leaf
@@ -27,7 +28,6 @@ MODES = ("gspmd", "ddp", "pp")
 GRAD_SYNCS = ("hfreduce", "flat")
 COMPRESSIONS = ("", "bf16", "fp8", "int8")
 PP_SCHEDULES = ("gpipe", "1f1b")
-_NOT_PORTED = {"pp": "the pipelined path (ROADMAP A13)"}
 # the plan's values that keep work and state on one device
 _ONE_DEVICE = {"tp": 1, "ep": 1, "zero1": False, "opt_shard_model": False,
                "seq_shard": False}
@@ -114,10 +114,6 @@ class ParallelPlan:
 
 
 def _require_ported(plan: ParallelPlan, grid=None) -> None:
-    if plan.mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"ParallelPlan(mode={plan.mode!r}) is not ported to repro_torch "
-            f"yet: {_NOT_PORTED[plan.mode]}; use mode='gspmd' or 'ddp'")
     allowed = {"zero1"} if plan.mode == "ddp" else set()
     multi = {k: getattr(plan, k) for k, one in _ONE_DEVICE.items()
              if getattr(plan, k) != one and k not in allowed}
@@ -126,9 +122,9 @@ def _require_ported(plan: ParallelPlan, grid=None) -> None:
             f"ParallelPlan{multi} is not ported to repro_torch: it splits "
             f"work or state in ways the port does not run; keep "
             f"{_ONE_DEVICE} (zero1 acts with mode='ddp')")
-    if plan.mode == "ddp" and grid is None:
-        raise ValueError("mode='ddp' runs over the ranks of a "
-                         "core.grid.Grid; pass grid=")
+    if plan.mode in ("ddp", "pp") and grid is None:
+        raise ValueError(f"mode={plan.mode!r} runs over the ranks of a "
+                         "core.grid.Grid (pp: its pipe axis); pass grid=")
 
 
 def make_train_step(plan: ParallelPlan, model, optimizer, device=None,
@@ -137,7 +133,9 @@ def make_train_step(plan: ParallelPlan, model, optimizer, device=None,
     ``plan`` (device default: the card; raises without CUDA unless
     ``device="cpu"``).  ``"gspmd"`` runs on one device; ``"ddp"`` runs
     this rank's part of the global ``batch`` on ``grid``
-    (``core.ddp.make_ddp_train_step``).  The step updates ``state`` in
+    (``core.ddp.make_ddp_train_step``); ``"pp"`` runs this rank's stage
+    of the pipeline on this rank's part of the batch
+    (``parallel.pp.make_pp_train_step``).  The step updates ``state`` in
     place (see ``optim.AdamW``) and runs inside a ``train.step``
     telemetry span, as the JAX step does."""
     _require_ported(plan, grid)
@@ -145,6 +143,10 @@ def make_train_step(plan: ParallelPlan, model, optimizer, device=None,
         from repro_torch.core.ddp import make_ddp_train_step
         step = make_ddp_train_step(model, optimizer, grid, plan,
                                    device=device)
+    elif plan.mode == "pp":
+        from repro_torch.parallel.pp import make_pp_train_step
+        step = make_pp_train_step(model, optimizer, grid, plan,
+                                  device=device)
     else:
         from repro_torch import train_lib
         step = train_lib.make_train_step(model, optimizer,

@@ -1,11 +1,11 @@
 """Multi-process checks of the port's HaiScale DDP path (port of
 ``repro/testing/multidev.py``).
 
-``run_ranks(fn, pods, data, device, stage)`` spawns ``pods * data``
-ranks (``torch.multiprocessing``, "spawn"), joins them in a gloo
-process group on localhost (``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR``
-/ ``MASTER_PORT`` set as torchrun sets them), builds the
-``core.grid.Grid`` and calls ``fn(grid, device, *args)`` on each.  It
+``run_ranks(fn, pods, data, device, staging, pipe=1)`` spawns ``pipe
+* pods * data`` ranks (``torch.multiprocessing``, "spawn"), joins them
+in a gloo process group on localhost (``RANK`` / ``WORLD_SIZE`` /
+``MASTER_ADDR`` / ``MASTER_PORT`` set as torchrun sets them), builds
+the ``core.grid.Grid`` and calls ``fn(grid, device, *args)`` on each.  It
 returns every rank's (result, kernel launch counts) in rank order and
 raises if any rank fails or the run outlives ``timeout``.  ``fn`` must
 be importable by name (a module-level function); results travel
@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import os
 import queue
+import shutil
 import traceback
 
 import numpy as np
@@ -30,8 +31,9 @@ from repro_torch.core.grid import free_port
 from repro_torch.telemetry import now
 
 
-def _worker(fn, rank, pods, data, device, stage, port, args, results):
-    world = pods * data
+def _worker(fn, rank, pods, data, pipe, device, staging, port, args,
+            results):
+    world = pipe * pods * data
     try:
         os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                           LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
@@ -43,7 +45,7 @@ def _worker(fn, rank, pods, data, device, stage, port, args, results):
         from repro_torch.kernels import launch_counts, reset_launch_counts
         dist.init_process_group("gloo", init_method="env://", rank=rank,
                                 world_size=world)
-        grid = Grid(pods, data, stage=stage)
+        grid = Grid(pods, data, pipe, staging=staging)
         reset_launch_counts()
         out = fn(grid, device, *args)
         results.put((rank, True, out, launch_counts()))
@@ -53,15 +55,17 @@ def _worker(fn, rank, pods, data, device, stage, port, args, results):
         raise SystemExit(1)
 
 
-def run_ranks(fn, pods, data, device="cpu", stage=None, args=(),
-              timeout=600.0):
-    """[(result, launch counts) of rank r for r in range(pods * data)]."""
-    world = pods * data
+def run_ranks(fn, pods, data, device="cpu", staging=None, args=(),
+              timeout=600.0, pipe=1):
+    """[(result, launch counts) of rank r for r in range(pipe * pods *
+    data)]."""
+    world = pipe * pods * data
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=_worker, args=(fn, r, pods, data, device,
-                                               stage, port, args, results))
+    procs = [ctx.Process(target=_worker, args=(fn, r, pods, data, pipe,
+                                               device, staging, port, args,
+                                               results))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -353,4 +357,82 @@ def check_elastic_zero1(grid, device, root):
     back, _ = ElasticCheckpointer(tree_root, plan, grid).restore_for(
         plan, grid, params)
     out["back"] = shard(back)
+    return out
+
+
+def check_pp(grid, device, params_np, root):
+    """The JAX package's pipeline checks on a pipe 2 x pod 2 x data 2
+    ``grid`` (``run_ranks(..., pipe=2)``):
+
+    - ``train``: ``check_pp_train`` — 5 steps of 16 x 32 under
+      ``ParallelPlan(mode="pp")`` for schedules gpipe and 1f1b at
+      ``pp_microbatches`` 2 and 4 on ``small_dense(params_np)``: every
+      rank's losses and, on rank 0, the fp32 masters after the last
+      step;
+    - ``pipeline``: ``check_pipeline`` on a second grid, pipe 4 x data 2
+      over the same ranks — 8 tanh layers of 16 x 16 weights
+      (``np.random.default_rng(3)``, x 8 x 16, 4 microbatches) through
+      ``make_pipelined_forward``: this rank's output and the gradient
+      of sum(y ** 2) summed over its pipe group (the whole stacked
+      gradient);
+    - ``resume``: the launcher (``launch.train.main``) under ``--parallel
+      pp`` with 2 stages over every rank: 4 steps straight, saving at
+      steps 2 and 4 under ``root``/straight; then, from a copy of its
+      step-2 checkpoint alone under ``root``/resumed, ``--resume`` to
+      step 4; both runs' losses (the checkpoints stay under ``root``)."""
+    from repro_torch.core.grid import Grid, all_reduce
+    from repro_torch.launch import train
+    from repro_torch.models.params import tree_map
+    from repro_torch.parallel import ParallelPlan, init_state, \
+        make_train_step
+    from repro_torch.parallel.pp import make_pipelined_forward
+    out = {"coords": (grid.stage, grid.pod, grid.data_index),
+           "rows": (grid.rows(16).start, grid.rows(16).stop), "train": {}}
+    cfg, model, opt, params = small_dense(params_np, device)
+    for schedule in ("gpipe", "1f1b"):
+        for m in (2, 4):
+            plan = ParallelPlan(mode="pp", pp_schedule=schedule,
+                                pp_microbatches=m)
+            state = init_state(plan, opt, tree_map(torch.clone, params),
+                               grid)
+            step = make_train_step(plan, model, opt, device=device,
+                                   grid=grid)
+            losses = []
+            for i in range(5):
+                state, metrics = step(state, _batch(cfg, i, 16, 32))
+                losses.append(float(metrics["loss"]))
+            out["train"][f"{schedule}_m{m}"] = {
+                "losses": losses,
+                "master": _tree_np(state["master"]) if grid.rank == 0
+                else None}
+
+    grid4 = Grid(1, 2, 4, staging=grid.staging)
+    rng = np.random.default_rng(3)
+    L, d, b, m = 8, 16, 8, 4
+    w = torch.tensor(rng.standard_normal((L, d, d)) * 0.3,
+                     dtype=torch.float32, device=device, requires_grad=True)
+    x = torch.tensor(rng.standard_normal((b, d)), dtype=torch.float32,
+                     device=device)
+    f = make_pipelined_forward(lambda lw, h: torch.tanh(h @ lw), 4, m, grid4)
+    y = f(w, x)
+    (y ** 2).sum().backward()
+    out["pipeline"] = {"y": _np(y), "grad": _np(all_reduce(w.grad,
+                                                           grid4.pipe))}
+
+    argv = ["--arch", "phi4-mini-3.8b", "--smoke", "--device", str(device),
+            "--parallel", "pp", "--pp-stages", "2", "--pp-microbatches", "2",
+            "--batch", "8", "--seq", "16", "--steps", "4", "--log-every",
+            "100"]
+    straight = os.path.join(root, "straight")
+    resumed = os.path.join(root, "resumed")
+    out["resume"] = {"straight": train.main(
+        argv + ["--ckpt-dir", straight, "--ckpt-every", "2"])}
+    if grid.rank == 0:      # the straight run's step-2 checkpoint, alone
+        shutil.copytree(os.path.join(straight, "step_2"),
+                        os.path.join(resumed, "step_2"))
+        with open(os.path.join(resumed, "latest.json"), "w") as f:
+            f.write('{"step": 2}')
+    dist.barrier()
+    out["resume"]["resumed"] = train.main(argv + ["--ckpt-dir", resumed,
+                                                  "--resume"])
     return out

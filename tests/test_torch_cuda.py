@@ -582,7 +582,7 @@ def test_ddp_collectives_staged_on_card_match_cpu(cuda):
     build.build_all(["quant_comm"])
     cpu = run_ranks(check_collectives, 2, 4, "cpu")[0][0]
     gpu, counts = run_ranks(check_collectives, 2, 4, "cuda:0",
-                            stage="host")[0]
+                            staging="host")[0]
     for k, v in cpu.items():
         if k == "fp8_after":
             continue

@@ -97,6 +97,15 @@ def test_guard_scans_the_checkpoint_slice():
         assert m in mods, m
 
 
+def test_guard_scans_the_pp_slice():
+    """The import and source scans reach the pipelined path and the
+    modules it changed: the plan, the grid's pipe axis, the launcher."""
+    mods = _port_modules()
+    for m in ("repro_torch.parallel.pp", "repro_torch.parallel.plan",
+              "repro_torch.core.grid", "repro_torch.launch.train"):
+        assert m in mods, m
+
+
 # the one import of either outside the tests: the bridge's lazy import,
 # on the path that hands bf16 / e4m3 tensors to numpy (CPU tests only)
 _CARD_ABSENT_OK = {("bridge.py", "ml_dtypes")}

@@ -15,6 +15,8 @@ programs compute the same fp32 arithmetic.  On CPU tensors the port's
 rmsnorm and flash-attention ``autograd.Function``s run their plain
 forward and backward functions, so these tests also hold the Functions'
 wiring against JAX autodiff."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -148,16 +150,29 @@ def test_train_cli_on_cpu(capsys):
     out = capsys.readouterr().out
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert out.count(" loss ") == 3          # one per step, then the final
-    # the pipelined path is not ported; ddp runs over a grid of ranks
-    # (tests/test_torch_ddp.py drives it, the CLI included)
+    # ddp and pp run over a grid of ranks (tests/test_torch_ddp.py and
+    # tests/test_torch_pp.py drive them, the CLI included): without one
+    # they raise
     from repro_torch.parallel import ParallelPlan, make_train_step
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_train_step(ParallelPlan(mode="pp"), None, None, device="cpu")
-    with pytest.raises(ValueError, match="grid"):
-        make_train_step(ParallelPlan(mode="ddp", overlap=False), None, None,
-                        device="cpu")
-    with pytest.raises(SystemExit):
-        train.main(["--arch", "phi4-mini-3.8b", "--parallel", "pp"])
+    for plan in (ParallelPlan(mode="pp"),
+                 ParallelPlan(mode="ddp", overlap=False)):
+        with pytest.raises(ValueError, match="grid"):
+            make_train_step(plan, None, None, device="cpu")
+    # the launcher's pp flags parse into the JAX launcher's plan, and
+    # its refusals are JAX's (--pods is the port's own, ddp only)
+    from repro.launch.train import build_plan as jax_build_plan
+    from repro_torch.elastic.manifest import plan_to_dict
+    argv = ["--arch", "phi4-mini-3.8b", "--parallel", "pp"]
+    for extra in ([], ["--pp-schedule", "gpipe", "--pp-microbatches", "8",
+                       "--pp-stages", "2", "--compress", "int8",
+                       "--bucket-mb", "4"]):
+        args = train.parser().parse_args(argv + extra)
+        want = dataclasses.asdict(jax_build_plan(args))
+        want["batch_axes"] = list(want["batch_axes"])
+        assert plan_to_dict(train.build_plan(args)) == want
+    for extra in (["--zero1"], ["--no-overlap"], ["--pods", "2"]):
+        with pytest.raises(SystemExit):
+            train.main(argv + ["--device", "cpu", *extra])
 
 
 def _smoke_step(remat):
