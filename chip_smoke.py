@@ -93,17 +93,18 @@ Phases (any failure exits non-zero and prints no result line):
    ``PrefetchLoader``), ``restore_for`` onto ddp + ZeRO-1 over a
    one-rank gloo grid, saved as ``zero1_flat`` and resharded back to a
    tree, and ``python -m repro_torch.launch.train --smoke --ckpt-fs3``
-   on the card (run as ``-m`` runs it, in this process), 4 steps then
-   ``--resume`` to 6.  Gates: the restored state bitwise equal to
-   the state at the save, the resumed losses and final state bitwise
-   equal to the straight run's, the tree -> ZeRO-1 -> tree round trip
-   bitwise, the training kernels launched in the resumed steps, and
-   four planted faults caught (a snapshot holding references, one
-   master offset shifted by one element, a ZeRO-1 shard missing, the
-   resumed loader restarted at step 0).  Prints the checkpoint's bytes
-   and chunks, the seconds the caller was blocked by the async save,
-   of the background write and of the restore with their GB/s, and
-   the free disk.
+   on the card (run as ``-m`` runs it, in this process), 4 steps with
+   ``--trace`` (the Chrome-trace JSON must load and hold ``train.step``
+   and ``ckpt.*`` events) then ``--resume`` to 6.  Gates: the restored
+   state bitwise equal to the state at the save, the resumed losses and
+   final state bitwise equal to the straight run's, the tree -> ZeRO-1
+   -> tree round trip bitwise, the training kernels launched in the
+   resumed steps, and four planted faults caught (a snapshot holding
+   references, one master offset shifted by one element, a ZeRO-1
+   shard missing, the resumed loader restarted at step 0).  Prints the
+   checkpoint's bytes and chunks, the seconds the caller was blocked
+   by the async save, of the background write and of the restore with
+   their GB/s, and the free disk.
 6. MoE serving: qwen2-moe-a2.7b at full width (24 layers, random bf16
    weights from seed 0) serves the same trace over its vocabulary, both
    runs, every serving kernel (the top-k gating forward included)
@@ -135,7 +136,7 @@ Phases (any failure exits non-zero and prints no result line):
    kernels against the plain quantizer, bitwise, (iv) int8 against
    uncompressed within the quantization bound, (v) planted faults (the
    prescale dropped, a strong rank's shard missing from phase 3, a
-   bucket's hook one leaf early) that (i) or (ii) must catch; then 3
+   bucket's hook one leaf early) that (i) or (ii) must catch; then 2
    steps with each of the uncompressed and int8 wires (overlap on, every
    kernel's launches counted from the ranks), one with overlap off, and
    the hfreduce of the whole gradient with each wire format.
@@ -154,6 +155,23 @@ Phases (any failure exits non-zero and prints no result line):
    kernel launched.  Prints each schedule's step times, ticks, peak
    memory per rank and the seconds in pipe sends and in the gradient
    sum over the pipe.  The bubble is not idle time on one shared card.
+12. HAI-Platform fault tolerance (``ft_phase``): gpt2-medium at full
+   width and depth (bf16, AdamW with fp32 masters) as 4 ranks sharing
+   the card over host-staged gloo, 4 x 1024 tokens a step, under
+   ``platform.FTRunner`` with ``elastic.ElasticCheckpointer`` saving
+   asynchronously to an in-process 3FS cluster
+   (``testing.multidev.check_elastic``).  Leg 1: ddp + ZeRO-1, the
+   first non-fatal Table-V class of ``FailureModel(0)`` between two
+   checkpoints; the losses, replay included, and every leaf of the
+   final state bitwise equal to an unbroken run.  Leg 2: pp (2 stages,
+   1f1b), the first fatal class of ``FailureModel(1)``, the validator
+   healthy on the card, ``restore_for`` onto ddp + ZeRO-1 over 2 of the
+   ranks; 3 post-restore losses within 1e-3 relative of the unbroken
+   pp run, one rescale, world 1, the lost steps.  Both: each record
+   once, the event log's JSONL equal to the report, validator <
+   restore < rescale.  Planted faults (resuming at the failure step,
+   the survivors' ZeRO-1 shards swapped, a broken GEMM check) must
+   each fail its gate.
 
 The kernel cases of phase 2 include both top-k gating kernels at the
 MoE shapes (qwen2-moe's decode, prefill and training rows, 64 experts
@@ -2387,14 +2405,16 @@ def profiled(run, top=12):
     of the traced wall time, the device operations by time, and the
     device time of the port's attention kernels and of its rmsnorm
     backward (the row kernel and its dw combine; the combine, launched
-    early as a programmatic dependent, also counts the time it waits)."""
+    early as a programmatic dependent, also counts the time it waits).
+    Only the device's activity is traced: every number here reads
+    device rows, and tracing the host's operations too cost 76-103 s of
+    host time a serving phase and stretched the wall (PERF.md §6)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.telemetry import now
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = now()
         run()
         torch.cuda.synchronize()
@@ -2830,14 +2850,17 @@ def ckpt_cli(root):
     process: a second interpreter spends ~15 s reaching the card), 4
     steps with a 3FS checkpoint every 2, then ``--resume`` to 6.  A run
     exits 0 when the module returns; an exception or ``SystemExit`` is
-    its failure."""
+    its failure.  The first run also takes ``--trace``: its Chrome-trace
+    JSON must load and hold ``train.step`` and ``ckpt.*`` events."""
     import contextlib
     import io
     import runpy
     base = ["--arch", ARCH, "--smoke", "--batch", "4", "--seq", "128",
             "--ckpt-dir", str(root), "--ckpt-fs3", "--log-every", "1"]
+    trace = Path(root).parent / "ckpt_cli_trace.json"
     out, argv = [], sys.argv
-    for extra in (["--ckpt-every", "2", "--steps", "4"],
+    for extra in (["--ckpt-every", "2", "--steps", "4", "--trace",
+                   str(trace)],
                   ["--resume", "--steps", "6"]):
         buf, rc = io.StringIO(), 0
         sys.argv = ["-m"] + base + extra
@@ -2856,7 +2879,29 @@ def ckpt_cli(root):
                     "stdout": buf.getvalue()[-2000:]})
     ok = all(r["rc"] == 0 for r in out) and \
         "resumed from step 4" in out[1]["stdout"]
-    return {"runs": out, "ok": ok}
+    return {"runs": out, "trace": trace_summary(trace, "train.step",
+                                                "ckpt."), "ok": ok}
+
+
+def trace_summary(path, *wanted):
+    """What a launcher's ``--trace`` JSON holds: its complete events by
+    name; ``ok`` when it loads as Chrome-trace JSON (a process-name
+    record first, every "X" event with its keys) and holds an event
+    named or prefixed by each of ``wanted``."""
+    try:
+        doc = json.loads(Path(path).read_text())
+        evs = doc["traceEvents"]
+        xs = [e for e in evs if e["ph"] == "X"]
+        ok = evs[0]["ph"] == "M" and all(
+            {"name", "ph", "ts", "dur", "pid", "tid"} <= set(e) and
+            e["dur"] >= 0 for e in xs)
+    except (OSError, ValueError, KeyError, IndexError) as e:
+        return {"ok": False, "error": repr(e)}
+    names = {}
+    for e in xs:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    ok = ok and all(any(n.startswith(w) for n in names) for w in wanted)
+    return {"ok": ok, "events": len(evs), "complete": names}
 
 
 def ckpt_phase(dev):
@@ -3181,6 +3226,10 @@ def ckpt_phase(dev):
     if not out["cli"]["ok"]:
         failures.append(f"checkpoint: the launcher's --ckpt-fs3 / --resume "
                         f"runs failed: {out['cli']['runs']}")
+    if not out["cli"]["trace"]["ok"]:
+        failures.append(f"checkpoint: the launcher's --trace JSON lacks "
+                        f"train.step / ckpt.* events or does not load: "
+                        f"{out['cli']['trace']}")
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     mark("clean up")
     out["seconds"] = now() - t_phase
@@ -4010,9 +4059,9 @@ def quant_phase(dev):
 # through pinned host memory over gloo (HFReduce's own path)
 DDP_ARCH = "gpt2-medium"
 DDP_PODS, DDP_DATA = 2, 4
-# 3 timed steps a wire: a median and every kernel's launches per step
-# within the script's time limit
-DDP_BATCH, DDP_SEQ, DDP_STEPS = 2, 1024, 3
+# 2 timed steps a wire: every kernel's launches per step within the
+# script's time limit (the gates read step 1's gradient)
+DDP_BATCH, DDP_SEQ, DDP_STEPS = 2, 1024, 2
 DDP_WIRES = ("", "bf16", "fp8", "int8")
 # gate (i), the synced uncompressed gradient against one process on the
 # global batch: the training gates above (both sides bf16; the synced one
@@ -4744,6 +4793,273 @@ def pp_phase(dev):
     return out, failures
 
 
+# ---- HAI-Platform fault tolerance: gpt2-medium, pp -> ddp + ZeRO-1 ----
+
+# the paper's DDP model at full width and depth as 4 ranks sharing the
+# card (a rescale exists only across ranks): world 2 is pipe 2 x pod 1 x
+# data 2, world 1 the first 2 ranks under ddp + ZeRO-1; a global batch
+# of 4 x 1024 tokens before and after the rescale
+FT_ARCH = "gpt2-medium"
+FT_ROOT = ROOT / "build" / "ft_phase"
+# (3FS chains of one target: a checkpoint of the full state is 4.9 GB,
+# and the card machine's disk writes ~0.85 GB/s; the unbroken runs fork
+# from the drill's state where the failure strikes)
+FT_DRILL = dict(steps=7, ckpt_every=4, kill_at=5, batch=4, seq=1024,
+                pp_microbatches=2, replication=1, fork_ref=True,
+                validator=(("gemm_n", 1024), ("mem_mb", 256),
+                           ("storage_mb", 64)))
+# leg 1 needs no 3 post-restore steps: 5 steps, a checkpoint every 3,
+# the failure before step 4 (a ddp + ZeRO-1 step on 4 ranks is the
+# drill's slowest)
+FT_SAME_DRILL = dict(FT_DRILL, steps=5, ckpt_every=3, kill_at=4)
+# the faults' smoke runs: the validator at the JAX tests' sizes
+FT_SMOKE_VALIDATOR = (("gemm_n", 64), ("mem_mb", 2), ("storage_mb", 1))
+FT_LR = 3e-4
+# the planted faults run on gpt2-medium's smoke config (4 layers, d 128,
+# heads of 64 for the flash kernels), each with that config's clean
+# legs as its reference: a fault's gate reads the runner's bookkeeping,
+# the losses and the restored shards, none of which depends on the size
+# gpt2-medium's layernorm takes the plain path (the rmsnorm kernels are
+# not on it); its 16 heads of 64 run the flash kernels
+FT_KERNELS = ("flash_attention", "flash_attention_bwd_dkv",
+              "flash_attention_bwd_dq")
+
+
+def ft_setup(device, smoke=False):
+    """(cfg, model, optimizer, params): gpt2-medium in bf16 (``smoke``:
+    its smoke config with heads of 64), random weights drawn on the card
+    from SEED, AdamW with fp32 masters and moments."""
+    from repro_torch.configs.registry import get_arch, smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    cfg = get_arch(FT_ARCH)
+    if smoke:
+        cfg = smoke_config(FT_ARCH)
+        cfg = dataclasses.replace(cfg, d_head=max(cfg.d_head, 64))
+    model = build_model(cfg)
+    return (cfg, model, AdamW(lr=FT_LR),
+            model.init(SEED, device=device, dtype="bfloat16"))
+
+
+def ft_fault_setup(device):
+    return ft_setup(device, smoke=True)
+
+
+def ft_rank(grid, device, root):
+    """One rank of the ft phase: ``testing.multidev.check_elastic`` at
+    full width and depth (both legs), then on the smoke config with the
+    three planted faults (and that config's clean legs, their
+    reference).  Numbers only."""
+    from repro_torch.testing import multidev as md
+    drill, same = md.Drill(**FT_DRILL), md.Drill(**FT_SAME_DRILL)
+    out = {"rank": grid.rank,
+           "full": md.check_elastic(grid, device, os.path.join(root, "full"),
+                                    ft_setup, drill, same_drill=same)}
+    torch_cleanup()
+    small = {"validator": FT_SMOKE_VALIDATOR}
+    out["smoke"] = md.check_elastic(
+        grid, device, os.path.join(root, "smoke"), ft_fault_setup,
+        dataclasses.replace(drill, **small),
+        faults=(md.RESUME_AT_FAILURE, md.SICK_GEMM, md.SHARDS_SWAPPED),
+        same_drill=dataclasses.replace(same, **small))
+    return out
+
+
+def torch_cleanup():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ft_same_plan_gate(r, drill, rank):
+    """The same-plan leg's verdict on one rank's result: [] or what
+    failed."""
+    lost = drill["kill_at"] - drill["kill_at"] // drill["ckpt_every"] * \
+        drill["ckpt_every"]
+    bad = []
+    if not (r["losses_bitwise"] and r["state_bitwise"]):
+        bad.append(f"rank {rank}: losses / final state not bitwise equal "
+                   f"to the unbroken run (losses {r['losses_bitwise']}, "
+                   f"state {r['state_bitwise']}, max |diff| "
+                   f"{r['state_diff']})")
+    got = (r["failures"], r["restores"], r["rescales"], r["world"],
+           r["lost_steps"])
+    if got != (1, 1, 0, 2, lost):
+        bad.append(f"rank {rank}: failures, restores, rescales, world, "
+                   f"lost steps {got} != {(1, 1, 0, 2, lost)}")
+    bad += _ft_events(r, rank, {"ckpt": 3, "failure": 1, "validator": 1,
+                                "restore": 1})
+    if not all(math.isfinite(x) for x in r["losses"]):
+        bad.append(f"rank {rank}: losses not finite")
+    return bad
+
+
+def ft_cross_plan_gate(r, drill, rank):
+    """The cross-plan leg's verdict on one rank's result."""
+    lost = drill["kill_at"] - drill["kill_at"] // drill["ckpt_every"] * \
+        drill["ckpt_every"]
+    if rank >= 2:
+        want = ["ckpt", "ckpt", "failure", "validator"]
+        events = [k for k in r.get("events", []) if k != "straggler"]
+        if r.get("left_at") != drill["kill_at"] or events != want:
+            return [f"rank {rank} (leaving): left at {r.get('left_at')} "
+                    f"with events {r.get('events')}, want "
+                    f"{drill['kill_at']} with {want}"]
+        return []
+    bad = []
+    post = len(r["cont_losses"])
+    if post < 3 or r["post_rel"] > TRAIN_LOSS_REL_TOL or not all(
+            math.isfinite(x) for x in r["cont_losses"]):
+        bad.append(f"rank {rank}: {post} post-restore losses, max rel "
+                   f"{r['post_rel']} to the unbroken pp run (want >= 3 "
+                   f"within {TRAIN_LOSS_REL_TOL})")
+    got = (r["failures"], r["restores"], r["rescales"], r["world"],
+           r["lost_steps"])
+    if got != (1, 1, 1, 1, lost):
+        bad.append(f"rank {rank}: failures, restores, rescales, world, "
+                   f"lost steps {got} != {(1, 1, 1, 1, lost)}")
+    bad += _ft_events(r, rank, {"ckpt": 3, "failure": 1, "validator": 1,
+                                "restore": 1, "rescale": 1})
+    return bad
+
+
+def _ft_events(r, rank, kinds):
+    """Every record once, the JSONL equal to the report, validator <
+    restore < rescale, and a healthy validator.  Straggler records are
+    the host clock's (a step after a rescale pins new buffers) and are
+    not counted."""
+    d, bad = r["digest"], []
+    seen = {k: n for k, n in d["kinds"].items() if k != "straggler"}
+    if not (d["jsonl_matches_report"] and d["unique"] and seen == kinds):
+        bad.append(f"rank {rank}: event log {d['kinds']} (unique "
+                   f"{d['unique']}, JSONL = report "
+                   f"{d['jsonl_matches_report']}), want {kinds}")
+    order = [k for k in d["order"] if k in ("validator", "restore",
+                                            "rescale")]
+    if order != [k for k in ("validator", "restore", "rescale")
+                 if k in kinds]:
+        bad.append(f"rank {rank}: event order {d['order']}")
+    sick = [n for n, c in r["validator"].items() if not c["ok"]]
+    if sick or not r["validator"]:
+        bad.append(f"rank {rank}: validator checks failed: {sick or 'none'}"
+                   " ran")
+    return bad
+
+
+def ft_phase(dev):
+    """HAI-Platform's fault tolerance on the card: gpt2-medium at full
+    width and depth (bf16, AdamW with fp32 masters) as 4 ranks sharing
+    the card over host-staged gloo (``run_ranks(..., pods=1, data=2,
+    pipe=2)``), a global batch of 4 x 1024 tokens, checkpoints through
+    ``ElasticCheckpointer`` on an in-process 3FS cluster under
+    build/ft_phase, saved asynchronously every few steps
+    (``testing.multidev.check_elastic`` with FT_SAME_DRILL for leg 1 and
+    FT_DRILL for leg 2):
+
+    - leg 1, same plan: ddp + ZeRO-1 over the 4 ranks under
+      ``FTRunner``, the first non-fatal Table-V class of
+      ``FailureModel(0)`` injected between two checkpoints; the losses
+      (replay included) and every leaf of the final state bitwise equal
+      to an unbroken run's;
+    - leg 2, cross plan: pp (2 stages, 1f1b), the first fatal class of
+      ``FailureModel(1)``, the validator on the card, then
+      ``restore_for`` onto ddp + ZeRO-1 over ranks 0 and 1 (ranks 2, 3
+      leave); at least 3 post-restore losses within TRAIN_LOSS_REL_TOL
+      of the unbroken pp run's, one rescale, world 1, lost steps = kill
+      step - checkpoint step;
+    - in both legs each record once, the JSONL = ``RunReport.events``,
+      validator < restore < rescale, every validator check passing;
+    - planted faults (on the smoke config): the runner resuming
+      at the failure step (leg 1's bitwise gate), the survivors' ZeRO-1
+      shards at each other's offsets (leg 2's gate), a broken GEMM check
+      (leg 1's rescale gate), each of which must fail its gate.
+
+    Prints the validator's readings, step times per plan, the
+    checkpointer's seconds and the training kernels' launches per step.
+    Returns (results, failures)."""
+    import shutil
+
+    from repro_torch.testing.multidev import RESUME_AT_FAILURE, \
+        SHARDS_SWAPPED, SICK_GEMM, run_ranks
+    shutil.rmtree(FT_ROOT, ignore_errors=True)
+    FT_ROOT.mkdir(parents=True, exist_ok=True)
+    try:
+        ranks = run_ranks(ft_rank, 1, 2, device=str(dev), staging="host",
+                          args=(str(FT_ROOT),), timeout=600, pipe=2)
+    finally:
+        shutil.rmtree(FT_ROOT, ignore_errors=True)
+    failures = []
+    res = [r for r, _ in ranks]
+    kill = FT_DRILL["kill_at"]
+    for depth in ("full", "smoke"):
+        for rank, r in enumerate(res):
+            failures += [f"ft {depth} same plan: {b}" for b in
+                         ft_same_plan_gate(r[depth]["same_plan"],
+                                           FT_SAME_DRILL, rank)]
+            failures += [f"ft {depth} cross plan: {b}" for b in
+                         ft_cross_plan_gate(r[depth]["cross_plan"],
+                                            FT_DRILL, rank)]
+    gates = {RESUME_AT_FAILURE: ("same plan", ft_same_plan_gate,
+                                 FT_SAME_DRILL),
+             SICK_GEMM: ("same plan", ft_same_plan_gate, FT_SAME_DRILL),
+             SHARDS_SWAPPED: ("cross plan", ft_cross_plan_gate, FT_DRILL)}
+    controls = []
+    for fault, (leg, gate, drill) in gates.items():
+        caught = [gate(r["smoke"]["faults"][fault], drill, rank)
+                  for rank, r in enumerate(res)]
+        row = {"fault": fault, "gate": leg,
+               "caught": any(caught), "by": caught[0][:2]}
+        controls.append(row)
+        if not row["caught"]:
+            failures.append(f"ft: planted fault '{fault}' passed the "
+                            f"{leg} gate")
+    r0 = res[0]["full"]
+    same, cross = r0["same_plan"], r0["cross_plan"]
+    out = {
+        "arch": FT_ARCH, "ranks": 4, "drill": FT_DRILL,
+        "same_plan_drill": FT_SAME_DRILL,
+        "classes": {"same_plan": same["cls"], "cross_plan": cross["cls"]},
+        "validator": {"same_plan": same["validator"],
+                      "cross_plan": cross["validator"]},
+        "step_s": {"ddp_zero1_4_ranks": same["step_s"],
+                   "pp_4_ranks": cross["step_s"][:kill],
+                   "ddp_zero1_2_ranks": cross["step_s"][kill:]},
+        "losses": {"same_plan": same["losses"],
+                   "same_plan_unbroken": same["ref_losses"],
+                   "cross_plan": cross["losses"],
+                   "cross_plan_unbroken": cross["ref_losses"]},
+        "post_restore_rel": cross["post_rel"],
+        "lost_steps": {"same_plan": same["lost_steps"],
+                       "cross_plan": cross["lost_steps"]},
+        "ckpt_s": {"same_plan": same["ckpt_s"],
+                   "cross_plan": cross["ckpt_s"]},
+        "spans_s": {"same_plan": same["spans_s"],
+                    "cross_plan": cross["spans_s"]},
+        "leg_seconds": {"same_plan": same["seconds"],
+                        "cross_plan": cross["seconds"]},
+        # the unbroken runs' steps, every rank's launches
+        "launches_per_step": {
+            plan: {k: sum(r["full"][leg]["ref_launches"].get(k, 0)
+                          for r in res) / r0[leg]["ref_steps"]
+                   for k in FT_KERNELS}
+            for plan, leg in (("ddp_zero1_4_ranks", "same_plan"),
+                              ("pp_4_ranks", "cross_plan"))},
+        "launches": {k: sum(r["full"][leg]["launches"].get(k, 0)
+                            + r["full"][leg].get("ref_launches", {}).get(
+                                k, 0)
+                            for r in res for leg in ("same_plan",
+                                                     "cross_plan"))
+                     for k in FT_KERNELS},
+        "controls": controls}
+    for k in FT_KERNELS:
+        if out["launches"][k] <= 0:
+            failures.append(f"ft: kernel {k} never launched")
+    print(json.dumps({"ft": out}), flush=True)
+    return out, failures
+
+
 def _leaf_names(tree, prefix=""):
     if isinstance(tree, dict):
         return [n for k in sorted(tree)
@@ -4894,6 +5210,9 @@ def main():
     torch.cuda.empty_cache()
     pp, pp_failures = timed("pp training", lambda: pp_phase(dev))
     failures += pp_failures
+    torch.cuda.empty_cache()
+    ft, ft_failures = timed("ft training", lambda: ft_phase(dev))
+    failures += ft_failures
 
     # representative main-path case of each kernel: the decode tick for
     # rmsnorm (8 slots), paged attention (T = 1, bs 16, bf16) and top-k
@@ -4947,6 +5266,11 @@ def main():
                 runs[label] = run["launches"][name]
                 per_step[f"{label} (per step)"] = \
                     run["launches"][name] / PP_STEPS
+        if name in FT_KERNELS:
+            label = f"{FT_ARCH} ft drill, both legs, 4 ranks"
+            runs[label] = ft["launches"][name]
+            for plan, per in ft["launches_per_step"].items():
+                per_step[f"{FT_ARCH} ft {plan} (per step)"] = per[name]
         summary.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces,
@@ -4975,6 +5299,12 @@ def main():
             flush=True)
     print(json.dumps({"ddp_summary": ddp}), flush=True)
     print(json.dumps({"pp_summary": {"card": card, **pp}}), flush=True)
+    print(json.dumps({"ft_summary": {"card": card, **{
+        k: ft[k] for k in ("arch", "classes", "step_s", "post_restore_rel",
+                           "lost_steps", "ckpt_s", "leg_seconds",
+                           "launches_per_step", "controls")},
+        "validator": {n: c["value"] for n, c in
+                      ft["validator"]["cross_plan"].items()}}}), flush=True)
     print(json.dumps({"ckpt_summary": {"card": card, **{
         k: ckpt.get(k) for k in ("arch", "layers", "params", "state_bytes",
                                  "free_disk_bytes", "save", "restore",

@@ -186,15 +186,28 @@ class _FS3Backend:
     metadata namespace (``delete_tree``) so ``keep=`` holds here exactly
     as it does on the local backend.  A backend sees the namespace as it
     was when its cluster was opened and as it writes it: a reader of
-    another process's writes opens its backend after them.
+    another process's writes opens its backend after them, or
+    ``reopen``s it (``elastic.ElasticCheckpointer`` does after its
+    barrier).
     """
 
-    def __init__(self, client, prefix: str = "ckpt"):
+    def __init__(self, client, prefix: str = "ckpt", opener=None):
         from repro_torch.fs3.kv import FS3KV
         if isinstance(client, FS3KV):
             self.kv = client
         else:
             self.kv = FS3KV(client, namespace=prefix.strip("/"))
+        self._opener = opener
+
+    def reopen(self):
+        """A fresh client over the same cluster root (``fs3_backend``'s
+        backends only): sees what other processes wrote since this one
+        was opened."""
+        from repro_torch.fs3.kv import FS3KV
+        if self._opener is None:
+            raise ValueError("this 3FS backend has no root to re-open")
+        self.kv.client.c.io.pool.shutdown(wait=False)
+        self.kv = FS3KV(self._opener(), namespace=self.kv.ns)
 
     def write(self, name: str, data: bytes):
         self.kv.put(name, data)
@@ -227,8 +240,11 @@ def fs3_backend(root: str, *, n_nodes: int = 3, replication: int = 2,
     """Spin up an in-process 3FS cluster rooted at ``root`` and return a
     checkpoint backend writing through it (``--ckpt-fs3``)."""
     from repro_torch.fs3.client import FS3Client, FS3Cluster
-    cluster = FS3Cluster(root, n_nodes=n_nodes, replication=replication)
-    return _FS3Backend(FS3Client(cluster), prefix=prefix)
+
+    def opener():
+        return FS3Client(FS3Cluster(root, n_nodes=n_nodes,
+                                    replication=replication))
+    return _FS3Backend(opener(), prefix=prefix, opener=opener)
 
 
 # ----------------------- chunk format (shared) -----------------------
@@ -349,9 +365,10 @@ class CheckpointManager:
     def save(self, state, step: int, blocking: bool = True):
         """Snapshot to host (on this thread, complete on return), then
         write (on a background thread unless blocking)."""
-        with span("ckpt.d2h") as sp:
+        t0 = telemetry.now()
+        with span("ckpt.d2h", step=step):
             host = self.snapshot(named_leaves(state))
-        self.seconds["d2h"] = sp.duration_s
+        self.seconds["d2h"] = telemetry.now() - t0
         self._start(self._write, (host, step, None), blocking)
 
     def _start(self, write, args, blocking):
@@ -376,9 +393,10 @@ class CheckpointManager:
         return False
 
     def _write(self, named, step: int, extra):
-        with span("ckpt.write") as sp:
+        t0 = telemetry.now()
+        with span("ckpt.write", step=step):
             self.write_named(named, step, extra_files=extra)
-        self.seconds["write"] = sp.duration_s
+        self.seconds["write"] = telemetry.now() - t0
 
     def write_named(self, named, step: int, extra_files=None):
         """Write ``(name, tensor)`` pairs as one atomic checkpoint step:
@@ -419,11 +437,12 @@ class CheckpointManager:
     def restore(self, step: int, template):
         """The state of ``step`` in ``template``'s nesting, each leaf a
         fresh tensor with the template leaf's dtype and device."""
-        with span("ckpt.restore") as sp:
+        t0 = telemetry.now()
+        with span("ckpt.restore", step=step):
             tensors, _ = read_named(self.backend, step)
             out = [adopt(tensors[name], leaf)
                    for name, leaf in named_leaves(template)]
-        self.seconds["restore"] = sp.duration_s
+        self.seconds["restore"] = telemetry.now() - t0
         return unflatten_like(template, out)
 
     def restore_latest(self, template):

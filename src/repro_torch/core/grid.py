@@ -16,6 +16,14 @@ ranks (the batch shards), ``grid.ranks`` all of them, and ``grid.all``
 is a group of every rank (``world`` itself when pipe is 1).  The JAX
 ``axis_size`` of an axis is its group's size.
 
+``members=n`` builds the grid over the first n ranks of the default
+group only (the survivors of an elastic rescale, ``platform/runner.py``:
+the JAX runner switches to a smaller mesh, the port to a grid over
+fewer ranks).  ``dist.new_group`` is collective over the default group,
+so every rank builds such a grid, the ranks outside it too, before any
+of them leaves; outside it ``grid.member`` is False and the grid has
+no groups.  Its ranks keep their default-group ranks.
+
 The collectives below take a ``ProcessGroup`` where the JAX functions
 take an axis name, and return new tensors as the JAX ones do:
 ``all_reduce``, ``reduce_scatter`` (tiled, as ``psum_scatter``),
@@ -52,7 +60,7 @@ class Grid:
     builds."""
 
     def __init__(self, pods: int, data: int, pipe: int = 1,
-                 backend: str = "gloo", staging=None):
+                 backend: str = "gloo", staging=None, members=None):
         if backend == "nccl":
             raise NotImplementedError(
                 "Grid(backend='nccl') is not ported yet: one rank per card "
@@ -67,19 +75,25 @@ class Grid:
             raise RuntimeError("Grid needs torch.distributed initialised "
                                "(init_process_group) first")
         world = dist.get_world_size()
-        if world != pipe * pods * data:
+        n = world if members is None else members
+        if n != pipe * pods * data or n > world:
             raise ValueError(f"{pipe} stages x {pods} pods x {data} data = "
-                             f"{pipe * pods * data} ranks, but the world "
-                             f"has {world}")
+                             f"{pipe * pods * data} ranks, but the grid "
+                             f"spans {n} of the world's {world}")
         self.stages, self.pods, self.data = pipe, pods, data
         self.staging = staging
         self.size = pods * data
-        self.ranks = world
+        self.ranks = n
         self.rank = dist.get_rank()
-        self.stage, shard = divmod(self.rank, self.size)
-        self.pod, self.data_index = divmod(shard, data)
+        self.member = self.rank < n
+        # outside the grid: the same new_group calls, no group kept
+        self.stage, shard = divmod(self.rank, self.size) if self.member \
+            else (None, None)
+        self.pod, self.data_index = divmod(shard, data) if self.member \
+            else (None, None)
+        self.world = self.strong = self.weak = self.pipe = self.all = None
         if pipe > 1:
-            self.all = self._group(list(range(world)))
+            self.all = self._group(list(range(n)))
         for s in range(pipe):
             base = s * self.size
             g = self._group(list(range(base, base + self.size)))
@@ -104,7 +118,8 @@ class Grid:
         g = dist.new_group(ranks, backend="gloo")
         if self.rank in ranks:
             _STAGING[g] = self.staging
-        return g
+            return g
+        return None
 
     def rows(self, n: int) -> slice:
         """This rank's rows of a global batch of ``n`` rows (split over

@@ -21,8 +21,11 @@ once).  A restore reads on every rank after a barrier over every rank
 (rank 0's pending writes joined first), each rank cutting its own slice
 from the canonical flats: every rank reads the files in parallel, where
 reading on rank 0 and scattering would push the whole optimizer state
-through one process and gloo.  A rank opens its backend after the writes it
-reads (a 3FS backend sees the namespace as it was when opened).
+through one process and gloo.  A 3FS backend sees the namespace as it
+was when opened, so after the barrier every reader re-opens it
+(``reopen``).  A cross-plan restore (``restore_for``) takes its barrier
+over the target grid alone, so ranks that leave in an elastic rescale
+need not join it.
 
 The pipeline stays off the critical path: the host copy (and the
 gather) runs under a ``ckpt.d2h`` span on the caller's thread and is
@@ -79,7 +82,7 @@ def snapshot_sharded(state, plan, grid, step: int, copy=host_copy):
     path (``params/...``, ``master/...``).
     """
     writer = grid is None or grid.rank == 0
-    with span("ckpt.d2h"):
+    with span("ckpt.d2h", step=step):
         if _is_zero1_flat(plan, state):
             mine = [(k, state[k]) for k in FLAT_KEYS]
             if writer:
@@ -161,19 +164,27 @@ class ElasticCheckpointer(CheckpointManager):
         return manifest_lib.loads(self.backend.read(
             f"step_{step}/{manifest_lib.MANIFEST_NAME}"))
 
-    def _sync(self):
-        """Rank 0's writes done and seen by every rank."""
+    def _sync(self, grid=None):
+        """Rank 0's writes done and seen by every rank of ``grid``
+        (default: the checkpointer's own): a barrier over the grid's
+        ranks, after which every reader re-opens a backend that sees
+        the namespace as it was when opened (``reopen``: 3FS)."""
+        grid = self.grid if grid is None else grid
         self.wait()
-        if _multi(self.grid):
-            dist.barrier(group=self.grid.all)
+        if _multi(grid):
+            dist.barrier(group=grid.all)
+            reopen = getattr(self.backend, "reopen", None)
+            if grid.rank != 0 and reopen is not None:
+                reopen()
 
-    def latest_step(self):
-        self._sync()
+    def latest_step(self, grid=None):
+        self._sync(grid)
         return super().latest_step()
 
     def restore(self, step: int, template):
         self._sync()
-        with span("ckpt.restore") as sp:
+        t0 = now()
+        with span("ckpt.restore", step=step):
             man = self.load_manifest(step)
             if not manifest_lib.plans_equal(self.plan, man["plan"]) \
                     and not self.allow_cross_plan:
@@ -184,23 +195,27 @@ class ElasticCheckpointer(CheckpointManager):
                     "use restore_for() to reshard")
             state, _ = reshard(self, self.plan, self.grid,
                                template["params"], step=step)
-        self.seconds["restore"] = sp.duration_s
+        self.seconds["restore"] = now() - t0
         return state
 
     def restore_for(self, plan_b, grid_b, params_template, *,
                     step: int | None = None):
         """Cross-plan restore: remap the checkpoint onto ``(plan_b,
-        grid_b)`` and adopt them for every save that follows."""
+        grid_b)`` and adopt them for every save that follows.  The
+        barrier is over ``grid_b``'s ranks alone, so ranks of the old
+        grid outside the new one (an elastic rescale's leavers) need
+        not join it; the writer, rank 0, is in every grid."""
         if step is None:
-            step = self.latest_step()
+            step = self.latest_step(grid_b)
             if step is None:
                 return None
         else:
-            self._sync()
-        with span("ckpt.restore") as sp:
+            self._sync(grid_b)
+        t0 = now()
+        with span("ckpt.restore", step=step):
             state, step = reshard(self, plan_b, grid_b, params_template,
                                   step=step)
-        self.seconds["restore"] = sp.duration_s
+        self.seconds["restore"] = now() - t0
         self.plan, self.grid = plan_b, grid_b
         return state, step
 

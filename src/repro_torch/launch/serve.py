@@ -10,7 +10,9 @@ Runs on the card by default (``--device cuda``) and stops with an error
 when there is none; ``--device cpu`` runs the plain PyTorch path.  At
 full width the weights are drawn once in the compute dtype (``--dtype``,
 default the config's bfloat16); ``--smoke`` runs the reduced config in
-float32.  Weights are random, drawn from ``--seed``.
+float32.  Weights are random, drawn from ``--seed``.  ``--trace PATH``
+writes the run's spans (``engine.prefill_chunk``, ``engine.decode_tick``
+or ``serve.dense_*``) as Chrome-trace JSON at exit.
 """
 from __future__ import annotations
 
@@ -66,6 +68,9 @@ def main(argv=None):
     ap.add_argument("--kv-dtype", default=None,
                     choices=("bfloat16", "float8_e4m3", "int8"))
     ap.add_argument("--metrics", action="store_true")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome-trace JSON (chrome://tracing / "
+                         "Perfetto) of the run's spans to this path")
     args = ap.parse_args(argv)
 
     from repro_torch.data.synthetic import batch_for_model
@@ -77,9 +82,21 @@ def main(argv=None):
     impl = args.decode_impl or cfg.decode_impl
     tokens = batch_for_model(cfg, "prefill", 0, args.batch, args.prompt_len,
                              args.seed)["tokens"]
-    if impl == "paged":
-        return _serve_paged(model, params, tokens, args, device)
-    return _serve_dense(model, params, tokens, args, device)
+    writer = None
+    if args.trace:
+        from repro_torch.telemetry import TraceWriter, install_writer
+        writer = TraceWriter()
+        install_writer(writer)
+    try:
+        if impl == "paged":
+            return _serve_paged(model, params, tokens, args, device)
+        return _serve_dense(model, params, tokens, args, device)
+    finally:
+        if writer is not None:
+            from repro_torch.telemetry import uninstall_writer
+            uninstall_writer()
+            writer.write(args.trace)
+            print(f"trace written to {args.trace}")
 
 
 def _print_stats(stats, request_metrics=None):
@@ -105,7 +122,7 @@ def _serve_dense(model, params, tokens, args, device):
     tok, positions, _ = model.prompt_inputs(params, {"tokens": toks_in})
     b, s = positions.shape
     t0 = now()
-    with span("serve.dense_prefill"):
+    with span("serve.dense_prefill", batch=b, prompt_len=s):
         state = model.init_seq_state(params, s + args.gen, batch_size=b,
                                      dtype=model.cfg.compute_dtype,
                                      device=device)
@@ -118,7 +135,7 @@ def _serve_dense(model, params, tokens, args, device):
     t0 = now()
     for i in range(args.gen - 1):
         pos = torch.full((b, 1), s + i, dtype=torch.int32, device=device)
-        with span("serve.dense_decode"):
+        with span("serve.dense_decode", step=i):
             state, logits = model.forward(params, state, toks[:, None], pos)
             toks = torch.argmax(logits, dim=-1).to(torch.int32)
             out.append(toks.cpu().numpy())

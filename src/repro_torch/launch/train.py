@@ -53,7 +53,13 @@ its state has taken, so ``--resume`` restores the latest one and starts
 the loader (``data.make_synthetic_loader``, a prefetching thread) at
 that step; a checkpoint stamped under another plan is refused unless
 ``--resume-plan`` reshards it onto this run's.  Under ddp and pp rank 0
-of the whole grid writes.  ``--trace`` is ROADMAP A14.
+of the whole grid writes.
+
+``--trace PATH`` installs a ``telemetry.TraceWriter`` for the run and
+writes its Chrome-trace JSON at exit (``train.step``, the checkpoint's
+``ckpt.*`` spans; load it in ``chrome://tracing`` or Perfetto); under
+ddp and pp rank r > 0 writes ``PATH`` with ``.rank<r>`` before its
+suffix.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \\
       --smoke --device cpu --steps 4 --ckpt-dir /tmp/ck --ckpt-fs3 \\
@@ -140,8 +146,8 @@ def _grid(args, dev, n_layers):
 
 
 def parser():
-    """The launcher's flags (those of the JAX launcher, bar ``--trace``
-    and the deprecated ``--ddp``, plus ``--pods`` and ``--device``)."""
+    """The launcher's flags (those of the JAX launcher, bar the
+    deprecated ``--ddp``, plus ``--pods`` and ``--device``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -195,7 +201,19 @@ def parser():
                     help="pp: microbatches a rank's batch is cut into")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome-trace JSON (chrome://tracing / "
+                         "Perfetto) of the run's spans to this path")
     return ap
+
+
+def trace_path(path: str, rank: int) -> str:
+    """Where rank ``rank`` writes ``--trace PATH``: PATH itself on rank
+    0, PATH with ``.rank<r>`` before its suffix on the others."""
+    if rank == 0:
+        return path
+    stem, ext = os.path.splitext(path)
+    return f"{stem}.rank{rank}{ext}"
 
 
 def main(argv=None):
@@ -208,9 +226,20 @@ def main(argv=None):
     cfg = _config(args, dev)
     grid, started = _grid(args, dev, cfg.n_layers) \
         if plan.mode in ("ddp", "pp") else (None, False)
+    writer = None
+    if args.trace:
+        from repro_torch.telemetry import TraceWriter, install_writer
+        writer = TraceWriter()
+        install_writer(writer)
     try:
         return _train(args, cfg, plan, dev, grid)
     finally:
+        if writer is not None:
+            from repro_torch.telemetry import uninstall_writer
+            uninstall_writer()
+            path = writer.write(trace_path(args.trace,
+                                           grid.rank if grid else 0))
+            print(f"trace written to {path}", flush=True)
         if started:
             import torch.distributed as dist
             dist.destroy_process_group()

@@ -153,8 +153,10 @@ def make_train_step(plan: ParallelPlan, model, optimizer, device=None,
                                          plan.gspmd_config(),
                                          device=resolve_device(device))
 
+    mode = plan.mode
+
     def traced_step(state, batch):
-        with span("train.step"):
+        with span("train.step", mode=mode):
             return step(state, batch)
 
     return traced_step

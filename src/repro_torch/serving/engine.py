@@ -300,7 +300,8 @@ class ServingEngine:
         toks, pos = job.chunks[job.next]
         self._prefill_shapes.add((tuple(toks.shape), job.state["k"].shape[2],
                                   job.next == 0))
-        with span("engine.prefill_chunk"):
+        with span("engine.prefill_chunk", rid=job.req.rid,
+                  chunk=job.next, width=toks.shape[1]):
             job.state, job.logits = self.model.forward(
                 self.params, job.state, toks, pos, fresh=job.next == 0)
         job.next += 1
@@ -485,7 +486,8 @@ class ServingEngine:
             state["k_scale"] = self.cache.k_scale
             state["v_scale"] = self.cache.v_scale
         self._decode_shapes.add(width)
-        with span("engine.decode_tick"):
+        with span("engine.decode_tick", step=self.step_count,
+                  active=len(active)):
             # the pools are updated in place (the JAX engine donates them)
             state, logits = self.model.forward(
                 self.params, state, torch.from_numpy(tokens).to(dev)[:, None],

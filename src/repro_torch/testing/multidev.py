@@ -18,6 +18,8 @@ against the JAX functions' outputs.
 """
 from __future__ import annotations
 
+import dataclasses
+import importlib
 import os
 import queue
 import shutil
@@ -436,3 +438,478 @@ def check_pp(grid, device, params_np, root):
     out["resume"]["resumed"] = train.main(argv + ["--ckpt-dir", resumed,
                                                   "--resume"])
     return out
+
+
+# ------------------ elastic fault tolerance (A14) ----------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Drill:
+    """The sizes of one elastic drill: ``steps`` a run, a checkpoint
+    every ``ckpt_every`` steps, the failure injected before step
+    ``kill_at``, a global batch of ``batch`` rows x ``seq`` tokens, pp
+    in ``pp_microbatches`` microbatches, the plans' ``remat``, the 3FS
+    cluster's ``replication`` and the validator's check sizes
+    (``Validator(**validator)``).  The step counts are the JAX
+    checks'.  ``fork_ref``: the unbroken run forks from the drill's own
+    state where the failure strikes (a copy of it takes the remaining
+    steps; the steps before it are the drill's own) instead of running
+    from step 0 on its own."""
+
+    steps: int = 10
+    ckpt_every: int = 5
+    kill_at: int = 7
+    batch: int = 16
+    seq: int = 32
+    pp_microbatches: int = 2
+    remat: str = "full"
+    replication: int = 2
+    validator: tuple = (("gemm_n", 64), ("mem_mb", 2), ("storage_mb", 1))
+    fork_ref: bool = False
+
+
+# planted faults of the drill (``check_elastic(..., fault=)``), each
+# with the gate that must catch it
+RESUME_AT_FAILURE = "the runner resumes at the failure step"
+SHARDS_SWAPPED = "the survivors' ZeRO-1 shards at each other's offsets"
+SICK_GEMM = "the validator's GEMM check broken"
+
+
+def small_elastic(device):
+    """The JAX elastic checks' setting: the phi4-mini smoke config with
+    2 layers in fp32, AdamW(1e-3, fp32 params), the port's own weights
+    from seed 0; returns (cfg, model, optimizer, params)."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    cfg = dataclasses.replace(smoke_config("phi4-mini-3.8b"), n_layers=2,
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    return (cfg, model, AdamW(lr=1e-3, param_dtype="float32"),
+            model.init(0, device=device))
+
+
+def _event_digest(report, event_log, tmpdir, name="events.jsonl"):
+    """Persist the runner's JSONL stream and check exactly-once: the file
+    holds the same records as ``report.events`` (one emit point), every
+    record is unique (kinds counted, timestamps excluded from the key)
+    (``repro/testing/multidev.py:_event_digest``).  ``order``: the
+    kinds in the order they were emitted."""
+    import json
+    path = os.path.join(tmpdir, name)
+    event_log.write(path)
+    with open(path) as f:
+        lines = [json.loads(ln) for ln in f if ln.strip()]
+    kinds, seen, unique = {}, set(), True
+    for rec in lines:
+        kinds[rec["kind"]] = kinds.get(rec["kind"], 0) + 1
+        key = json.dumps({k: v for k, v in rec.items() if k != "t"},
+                         sort_keys=True)
+        unique = unique and key not in seen
+        seen.add(key)
+    return {
+        "n_jsonl": len(lines),
+        "n_report": len(report.events),
+        "jsonl_matches_report": lines == [dict(r) for r in report.events],
+        "unique": unique,
+        "kinds": kinds,
+        "order": [r["kind"] for r in lines],
+    }
+
+
+def _fresh(tree):
+    from repro_torch.models.params import tree_map
+    return tree_map(torch.clone, tree)
+
+
+def _state_diff(a, b):
+    """(max |a - b| over every leaf of two states, all leaves bitwise
+    equal)."""
+    from repro_torch.ckpt import named_leaves
+    la, lb = named_leaves(a), named_leaves(b)
+    assert [n for n, _ in la] == [n for n, _ in lb]
+    diff = max(float((x.double() - y.double()).abs().max()) if x.numel()
+               else 0.0 for (_, x), (_, y) in zip(la, lb))
+    same = all(x.dtype == y.dtype and torch.equal(x, y)
+               for (_, x), (_, y) in zip(la, lb))
+    return diff, same
+
+
+def _timing(report, mgr, t_phase):
+    """Step times, the checkpointer's last seconds and the phase's."""
+    from repro_torch.telemetry import get_registry
+    reg = get_registry()
+    return {"step_s": list(report.step_times), "ckpt_s": dict(mgr.seconds),
+            "spans_s": {k: reg.histogram(f"span.{k}").sum for k in (
+                "ckpt.save", "ckpt.d2h", "ckpt.write", "ckpt.restore",
+                "ckpt.read", "validator.node_healthy")},
+            "seconds": now() - t_phase}
+
+
+def _recording_validator(drill, device, grid, sick):
+    """A ``platform.Validator`` that keeps its last results
+    (``.results``); ``sick``: its GEMM check reports a wrong product."""
+    from repro_torch.platform import Validator
+    from repro_torch.platform.validator import CheckResult
+
+    class Recording(Validator):
+        results = None
+
+        def run_all(self, storage_root=None):
+            self.results = super().run_all(storage_root)
+            return self.results
+
+        if sick:
+            def check_gemm(self):
+                good = Validator.check_gemm(self)
+                return CheckResult(good.name, False, good.value, good.unit,
+                                   "planted: the product is off by one")
+    return Recording(**dict(drill.validator), device=device, grid=grid)
+
+
+def _check_values(validator):
+    return {c.name: {"ok": c.ok, "value": float(c.value), "unit": c.unit,
+                     "detail": c.detail}
+            for c in (validator.results or [])}
+
+
+def _ckpt_step(drill):
+    """The checkpoint a failure before ``drill.kill_at`` restores."""
+    return drill.kill_at // drill.ckpt_every * drill.ckpt_every
+
+
+def _injector(drill, cls, fork=None):
+    """A ``FailureInjector`` of ``cls`` before ``drill.kill_at``; with
+    ``fork``, ``fork(step)`` runs first, where the failure strikes."""
+    from repro_torch.platform import FailureInjector
+
+    class Forking(FailureInjector):
+        def check(self, step):
+            if fork is not None and step in self.fail_steps:
+                fork(step)
+            super().check(step)
+    return Forking({drill.kill_at: cls})
+
+
+def _unbroken(step_fn, fetch, drill, state, start, before):
+    """The unbroken run from ``state`` at ``start``: ``before`` (the
+    losses of the steps that led there), then a copy of ``state``
+    through the remaining steps.  Returns (losses, final state, kernel
+    launches of those steps)."""
+    from repro_torch.kernels import launch_counts
+    counts = launch_counts()
+    losses = list(before)
+    state = _fresh(state)
+    for i in range(start, drill.steps):
+        state, m = step_fn(state, fetch(i))
+        losses.append(float(m["loss"]))
+    return losses, state, _minus(launch_counts(), counts)
+
+
+def _minus(a, b):
+    return {k: a[k] - b.get(k, 0) for k in a}
+
+
+def check_elastic_kill_resume(grid, device, root, setup, drill=Drill(),
+                              fault=None, ref=None):
+    """Same-plan kill / resume (``repro/testing/multidev.py:
+    check_elastic_kill_resume``): ddp + ZeRO-1 over every rank of
+    ``grid`` under ``FTRunner`` with an ``ElasticCheckpointer`` on 3FS
+    under ``root``, a checkpoint every ``drill.ckpt_every`` steps
+    (async), the first non-fatal class of ``FailureModel(0).sample(1250,
+    48.0)`` injected before ``drill.kill_at``, the validator run on
+    ``device``.  ``setup(device)`` gives (cfg, model, optimizer,
+    params).  The unbroken run is the same step, ``drill.steps`` times,
+    on a fresh state (``ref``: (losses, state) of an earlier call's,
+    else run here and kept under ``"_ref"``).  Returns the losses
+    (replay included) against the unbroken run's, whether the final
+    states are bitwise equal, the report's counters, ``_event_digest``
+    and the timings.  ``fault``: ``RESUME_AT_FAILURE`` (which the
+    bitwise gate must catch) or ``SICK_GEMM`` (the rescale gate)."""
+    from repro_torch.ckpt import fs3_backend
+    from repro_torch.data.synthetic import batch_for_model
+    from repro_torch.elastic import ElasticCheckpointer
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.parallel import ParallelPlan, init_state, \
+        make_train_step
+    from repro_torch.platform import FailureModel, FTRunner
+    t_phase = now()
+    cfg, model, opt, params = setup(device)
+    plan = ParallelPlan(mode="ddp", zero1=True, overlap=False,
+                        remat=drill.remat)
+
+    def fetch(i):
+        return batch_for_model(cfg, "train", i, drill.batch, drill.seq)
+
+    base = make_train_step(plan, model, opt, device=device, grid=grid)
+    cls = next(e.cls for e in FailureModel(seed=0).sample(1250, 48.0)
+               if not e.fatal)
+    out = {"cls": cls, "fault": fault}
+    if ref is None and not drill.fork_ref:
+        reset_launch_counts()
+        ref = out["_ref"] = _unbroken(
+            base, fetch, drill, init_state(plan, opt, params, grid), 0,
+            [])[:2]
+        out["ref_launches"] = launch_counts()
+        out["ref_steps"] = drill.steps
+
+    losses, forked = [], []
+
+    def fork(step):
+        forked.extend(_unbroken(base, fetch, drill, runner.state, step,
+                                losses))
+
+    def wrapped(state, batch):
+        state, m = base(state, batch)
+        losses.append(float(m["loss"]))
+        return state, m
+
+    tag = "same" if fault is None else f"same_{_FAULT_TAGS[fault]}"
+    mgr = ElasticCheckpointer(fs3_backend(os.path.join(root, tag),
+                                          replication=drill.replication),
+                              plan, grid)
+    injector = _injector(drill, cls, fork if ref is None else None)
+    restore_fn = None
+    if fault == RESUME_AT_FAILURE:
+        def restore_fn(template, _new_world):
+            state, _ = mgr.restore_latest(template)
+            return state, injector.raised[-1][0]
+    validator = _recording_validator(drill, device, grid,
+                                     sick=fault == SICK_GEMM)
+    reset_launch_counts()
+    runner = FTRunner(lambda world: wrapped, fetch, mgr,
+                      init_state(plan, opt, _fresh(params), grid),
+                      world_size=2, ckpt_every=drill.ckpt_every,
+                      injector=injector, validator=validator,
+                      restore_fn=restore_fn)
+    report = runner.run(drill.steps)
+    launches = launch_counts()
+    if ref is None:                    # forked where the failure struck
+        ref = out["_ref"] = forked[:2]
+        out["ref_launches"] = forked[2]
+        out["ref_steps"] = drill.steps - drill.kill_at
+        launches = _minus(launches, forked[2])
+    ref_losses, ref_state = ref
+    want = ref_losses[:drill.kill_at] + ref_losses[_ckpt_step(drill):]
+    diff, same = _state_diff(runner.state, ref_state)
+    out.update({
+        "losses": losses, "ref_losses": ref_losses,
+        "losses_bitwise": losses == want,
+        "n_losses": [len(losses), len(want)],
+        "state_diff": diff, "state_bitwise": same,
+        "launches": launches, "failures": report.failures,
+        "restores": report.restores, "rescales": report.rescales,
+        "lost_steps": report.lost_steps, "world": runner.world,
+        "validator": _check_values(validator),
+        "digest": _event_digest(report, runner.event_log,
+                                os.path.join(root, tag),
+                                f"events.rank{grid.rank}.jsonl"),
+        **_timing(report, mgr, t_phase)})
+    return out
+
+
+def check_elastic_cross_plan(grid, device, root, setup, drill=Drill(),
+                             fault=None, ref_losses=None):
+    """Cross-plan kill / rescale (``repro/testing/multidev.py:
+    check_elastic_cross_plan``) on ``grid``, pipe 2 x pod 1 x data 2 (4
+    ranks): pp under ``FTRunner`` with plan-stamped 3FS checkpoints; the
+    first fatal class of ``FailureModel(1).sample(1250, 48.0)`` before
+    ``drill.kill_at``; the validator on ``device``; the runner's
+    ``restore_fn`` reshards the last checkpoint onto ddp + ZeRO-1 over
+    the first 2 ranks (``Grid(1, 2, members=2)``, built by every rank
+    first) with the same global batch, and ranks 2 and 3 leave
+    (``GangExit``).  The unbroken pp run is the same pp step,
+    ``drill.steps`` times (``ref_losses``: an earlier call's).  Returns
+    every loss of the run (pp before the kill, ddp after it), the
+    post-restore losses against the unbroken run's, the report's
+    counters, ``_event_digest`` and the timings; on a leaving rank only
+    what it saw before it left.  ``fault``: ``SHARDS_SWAPPED`` (each
+    survivor restores the other's ZeRO-1 shard)."""
+    from repro_torch.ckpt import fs3_backend
+    from repro_torch.core.grid import Grid
+    from repro_torch.data.synthetic import batch_for_model
+    from repro_torch.elastic import ElasticCheckpointer
+    from repro_torch.elastic.sharded import _rank_offsets
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.parallel import ParallelPlan, init_state, \
+        make_train_step
+    from repro_torch.platform import FailureModel, FTRunner, GangExit
+    # the module (the package's attribute of that name is the function)
+    reshard_mod = importlib.import_module("repro_torch.elastic.reshard")
+    t_phase = now()
+    survivors = Grid(1, 2, staging=grid.staging, members=2)
+    cfg, model, opt, params = setup(device)
+    plan_pp = ParallelPlan(mode="pp", pp_microbatches=drill.pp_microbatches,
+                           remat=drill.remat)
+    plan_dp = ParallelPlan(mode="ddp", zero1=True, overlap=False,
+                           remat=drill.remat)
+
+    def plan_for(world):
+        return (plan_pp, grid) if world >= 2 else (plan_dp, survivors)
+
+    def fetch(i):
+        return batch_for_model(cfg, "train", i, drill.batch, drill.seq)
+
+    step_pp = make_train_step(plan_pp, model, opt, device=device, grid=grid)
+    cls = next(e.cls for e in FailureModel(seed=1).sample(1250, 48.0)
+               if e.fatal)
+    out = {"cls": cls, "fault": fault, "rank": grid.rank}
+    if ref_losses is None and not drill.fork_ref:
+        reset_launch_counts()
+        ref_losses = _unbroken(step_pp, fetch, drill,
+                               init_state(plan_pp, opt, params, grid), 0,
+                               [])[0]
+        out["ref_launches"] = launch_counts()
+        out["ref_steps"] = drill.steps
+
+    losses, cache, forked = [], {}, []
+
+    def fork(step):
+        forked.extend(_unbroken(step_pp, fetch, drill, runner.state, step,
+                                losses))
+
+    def make_step(world):
+        if world not in cache:
+            p, g = plan_for(world)
+            base = step_pp if p is plan_pp else make_train_step(
+                p, model, opt, device=device, grid=g)
+
+            def wrapped(state, batch, _base=base):
+                state, m = _base(state, batch)
+                losses.append(float(m["loss"]))
+                return state, m
+            cache[world] = wrapped
+        return cache[world]
+
+    tag = "cross" if fault is None else f"cross_{_FAULT_TAGS[fault]}"
+    mgr = ElasticCheckpointer(fs3_backend(os.path.join(root, tag),
+                                          replication=drill.replication),
+                              plan_pp, grid)
+    injector = _injector(drill, cls, fork if ref_losses is None else None)
+
+    def restore_fn(template, new_world):
+        p, g = plan_for(new_world)
+        if not g.member:
+            raise GangExit(injector.raised[-1][0], new_world)
+        if fault != SHARDS_SWAPPED or p is plan_pp:
+            return mgr.restore_for(p, g, template["params"])
+        # planted: each survivor cuts the other's shard
+        offsets = _rank_offsets(template["params"], g)
+        layout = reshard_mod._zero1_layout
+
+        def swapped(params_template, g_b):
+            total, padded, _ = layout(params_template, g_b)
+            return total, padded, offsets[g_b.rank ^ 1]
+        reshard_mod._zero1_layout = swapped
+        try:
+            return mgr.restore_for(p, g, template["params"])
+        finally:
+            reshard_mod._zero1_layout = layout
+
+    validator = _recording_validator(drill, device, grid, sick=False)
+    reset_launch_counts()
+    runner = FTRunner(make_step, fetch, mgr,
+                      init_state(plan_pp, opt, _fresh(params), grid),
+                      world_size=2, min_world=1,
+                      ckpt_every=drill.ckpt_every, injector=injector,
+                      validator=validator, restore_fn=restore_fn)
+    if ref_losses is not None:
+        out["ref_losses"] = ref_losses
+
+    def fork_out():
+        """The forked unbroken run's losses and launches, and the
+        drill's own launches."""
+        launches = launch_counts()
+        if forked:
+            out.update(ref_losses=forked[0], ref_launches=forked[2],
+                       ref_steps=drill.steps - drill.kill_at)
+            launches = _minus(launches, forked[2])
+        return launches
+
+    try:
+        report = runner.run(drill.steps)
+    except GangExit as e:
+        out.update({"left_at": e.step, "losses": losses,
+                    "launches": fork_out(),
+                    "validator": _check_values(validator),
+                    "events": [r["kind"] for r in runner.event_log.events],
+                    "seconds": now() - t_phase})
+        return out
+    launches = fork_out()
+    cont = losses[drill.kill_at:]
+    post_ref = out["ref_losses"][_ckpt_step(drill):]
+    out.update({
+        "losses": losses, "cont_losses": cont,
+        "post_err": max(abs(a - b) for a, b in zip(cont, post_ref)),
+        "post_rel": max(abs(a - b) / abs(b) for a, b in zip(cont, post_ref)),
+        "launches": launches,
+        "failures": report.failures, "restores": report.restores,
+        "rescales": report.rescales, "lost_steps": report.lost_steps,
+        "world": runner.world, "validator": _check_values(validator),
+        "digest": _event_digest(report, runner.event_log,
+                                os.path.join(root, tag),
+                                f"events.rank{grid.rank}.jsonl"),
+        **_timing(report, mgr, t_phase)})
+    return out
+
+
+_FAULT_TAGS = {RESUME_AT_FAILURE: "resume_at_failure",
+               SHARDS_SWAPPED: "shards_swapped", SICK_GEMM: "sick_gemm"}
+
+
+def _done(root, tag):
+    """Every rank past its run; rank 0 removes the run's checkpoints
+    (the next run's writes reuse the disk)."""
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(os.path.join(root, tag), ignore_errors=True)
+
+
+def check_elastic(grid, device, root, setup, drill=Drill(), faults=(),
+                  same_drill=None):
+    """Both elastic legs in one spawn of 4 ranks (pipe 2 x pod 1 x data
+    2, ``run_ranks(..., pods=1, data=2, pipe=2)``): the same-plan leg
+    over ``Grid(2, 2)`` of the same ranks (with ``same_drill``'s sizes,
+    default ``drill``'s), then the cross-plan leg, then one run of each
+    planted fault in ``faults`` (it reuses the clean leg's unbroken
+    run).  Each run's checkpoints are removed when every rank is past
+    it.  Returns {"same_plan", "cross_plan", "faults": {fault: result}}
+    with numbers only."""
+    from repro_torch.core.grid import Grid
+    grid_dp = Grid(2, 2, staging=grid.staging)
+    same_drill = same_drill or drill
+    same = check_elastic_kill_resume(grid_dp, device, root, setup,
+                                     same_drill)
+    _done(root, "same")
+    ref = same.pop("_ref")
+    out = {"same_plan": same, "faults": {}}
+    for fault in faults:
+        if fault in (RESUME_AT_FAILURE, SICK_GEMM):
+            out["faults"][fault] = check_elastic_kill_resume(
+                grid_dp, device, root, setup, same_drill, fault=fault,
+                ref=ref)
+            _done(root, f"same_{_FAULT_TAGS[fault]}")
+    del ref
+    out["cross_plan"] = check_elastic_cross_plan(grid, device, root, setup,
+                                                 drill)
+    _done(root, "cross")
+    for fault in faults:
+        if fault == SHARDS_SWAPPED:
+            out["faults"][fault] = check_elastic_cross_plan(
+                grid, device, root, setup, drill, fault=fault,
+                ref_losses=out["cross_plan"]["ref_losses"])
+            _done(root, f"cross_{_FAULT_TAGS[fault]}")
+    return out
+
+
+def check_elastic_all(grid, device, root, drill=Drill(), faults=()):
+    """``check_elastic_zero1`` on ``Grid(2, 2)`` of the spawn's 4 ranks,
+    then ``check_elastic`` (``small_elastic``) on the spawn's grid (pipe
+    2 x pod 1 x data 2): the elastic checks of both slices in one
+    spawn."""
+    from repro_torch.core.grid import Grid
+    zero1 = check_elastic_zero1(Grid(2, 2, staging=grid.staging), device,
+                                os.path.join(root, "zero1"))
+    return {"zero1": zero1,
+            "drill": check_elastic(grid, device, os.path.join(root, "drill"),
+                                   small_elastic, drill, faults)}

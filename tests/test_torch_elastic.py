@@ -2,8 +2,11 @@
 single-device tests of the JAX package's ``tests/test_elastic.py``
 repeated on tensors, JAX-written checkpoints (tree and ``zero1_flat``)
 restored bitwise in the port and the port's in JAX with identical
-files and ``plan.json``, and one gloo spawn of 2 pods x 2 ranks that
-saves, resumes and reshards ZeRO-1 state bitwise."""
+files and ``plan.json``, and one gloo spawn of 4 ranks that saves,
+resumes and reshards ZeRO-1 state bitwise on 2 pods x 2 ranks and runs
+both elastic legs of the JAX ``testing/multidev.py`` checks
+(``check_elastic_kill_resume``, ``check_elastic_cross_plan``) under the
+port's ``FTRunner``, with the drill's planted faults."""
 import json
 
 import numpy as np
@@ -276,15 +279,29 @@ def test_checkpoints_cross_between_jax_and_port(tmp_path, grid1, layout):
 # ------------------------- 2 pods x 2 ranks (gloo) -------------------------
 
 
-def test_zero1_save_resume_and_reshard_across_ranks(tmp_path):
+@pytest.fixture(scope="module")
+def spawn(tmp_path_factory):
+    """Every rank's ``multidev.check_elastic_all`` result, one spawn of 4
+    gloo ranks (pipe 2 x pod 1 x data 2): the ZeRO-1 checkpoints on 2
+    pods x 2 ranks, then both elastic legs of the FT drill with its
+    planted faults."""
+    from repro_torch.testing import multidev as md
+    root = tmp_path_factory.mktemp("spawn")
+    ranks = md.run_ranks(md.check_elastic_all, 1, 2, "cpu",
+                         args=(str(root), md.Drill(remat="none"),
+                               (md.RESUME_AT_FAILURE, md.SICK_GEMM,
+                                md.SHARDS_SWAPPED)),
+                         timeout=300, pipe=2)
+    return [out for out, _ in ranks]
+
+
+def test_zero1_save_resume_and_reshard_across_ranks(spawn):
     """gpt2-medium smoke, ddp + ZeRO-1 on 2 pods x 2 ranks: the resumed
     run (async save at step 2, restart, every rank restoring its own
     shard) equals the straight one bitwise, losses and final shards;
     rank 0's one-process gspmd restore holds every rank's masters; and
     the tree it saved restores back onto each rank's shard bitwise."""
-    from repro_torch.testing.multidev import check_elastic_zero1, run_ranks
-    ranks = [r for r, _ in run_ranks(check_elastic_zero1, 2, 2, "cpu",
-                                     args=(str(tmp_path),), timeout=300)]
+    ranks = [r["zero1"] for r in spawn]
     masters = []
     for r in ranks:
         assert r["restored_step"] == 2 and r["restored_opt_step"] == 2
@@ -300,3 +317,78 @@ def test_zero1_save_resume_and_reshard_across_ranks(tmp_path):
     tree = ranks[0]["tree_master"]
     np.testing.assert_array_equal(flat[:tree.size], tree)
     assert not np.any(flat[tree.size:])
+
+
+# ------------- the FT drill's elastic legs across 4 ranks (A14) -------------
+
+
+def _digest_ok(d, kinds):
+    """Every failure / validator / restore / rescale / ckpt record once
+    (straggler records read the host clock and are not counted)."""
+    assert d["jsonl_matches_report"] and d["n_jsonl"] == d["n_report"]
+    assert d["unique"], "duplicate platform event on the JSONL stream"
+    assert {k: n for k, n in d["kinds"].items() if k != "straggler"} == \
+        kinds
+    order = d["order"]
+    assert order.index("failure") < order.index("validator") < \
+        order.index("restore")
+    if "rescale" in kinds:
+        assert order.index("restore") < order.index("rescale")
+
+
+def test_elastic_same_plan_kill_resume_bitwise(spawn):
+    """``check_elastic_kill_resume`` on every rank: ddp + ZeRO-1 killed
+    at step 7 by a non-fatal class, restored from step 5: the losses
+    (replay included) and every leaf of the final state equal the
+    unbroken run bitwise; one restore, no rescale, every record once."""
+    for r, out in enumerate(o["drill"] for o in spawn):
+        s = out["same_plan"]
+        assert s["cls"] == "sw_xid43", s["cls"]
+        assert s["losses_bitwise"] and s["n_losses"] == [12, 12], r
+        assert s["state_bitwise"] and s["state_diff"] == 0.0, r
+        assert (s["failures"], s["restores"], s["rescales"],
+                s["lost_steps"], s["world"]) == (1, 1, 0, 2, 2)
+        assert all(c["ok"] for c in s["validator"].values())
+        _digest_ok(s["digest"], {"ckpt": 4, "failure": 1, "validator": 1,
+                                 "restore": 1})
+
+
+def test_elastic_cross_plan_rescale(spawn):
+    """``check_elastic_cross_plan``: pp on 4 ranks killed at step 7 by a
+    fatal class; the survivors (ranks 0, 1) reshard checkpoint 5 onto
+    ddp + ZeRO-1 and their 5 post-restore losses stay within 1e-5 of
+    the unbroken pp run (the JAX check's bound); ranks 2, 3 leave after
+    the validator's verdict."""
+    for r, out in enumerate(o["drill"] for o in spawn):
+        c = out["cross_plan"]
+        assert c["cls"] == "nvlink_xid74", c["cls"]
+        if r >= 2:
+            assert c["left_at"] == 7
+            assert [k for k in c["events"] if k != "straggler"] == [
+                "ckpt", "ckpt", "failure", "validator"]
+            continue
+        assert len(c["cont_losses"]) == 5
+        assert c["post_err"] <= 1e-5, c
+        assert (c["failures"], c["restores"], c["rescales"], c["world"],
+                c["lost_steps"]) == (1, 1, 1, 1, 2)
+        assert all(v["ok"] for v in c["validator"].values())
+        _digest_ok(c["digest"], {"ckpt": 4, "failure": 1, "validator": 1,
+                                 "restore": 1, "rescale": 1})
+
+
+def test_elastic_planted_faults_fail_their_gates(spawn):
+    """The drill's planted faults each fail the gate that guards them:
+    resuming at the failure step breaks the bitwise replay, a sick GEMM
+    check turns the non-fatal class into a rescale, and survivors that
+    take each other's ZeRO-1 shard leave the unbroken pp run."""
+    from repro_torch.testing import multidev as md
+    for r, out in enumerate(o["drill"] for o in spawn):
+        f = out["faults"]
+        resume = f[md.RESUME_AT_FAILURE]
+        assert not resume["losses_bitwise"] and not resume["state_bitwise"]
+        sick = f[md.SICK_GEMM]
+        assert sick["rescales"] == 1 and sick["world"] == 1
+        assert sick["validator"]["gemm_oracle"]["ok"] is False
+        swapped = f[md.SHARDS_SWAPPED]
+        if r < 2:
+            assert swapped["post_err"] > 1e-3, swapped["post_err"]

@@ -106,6 +106,24 @@ def test_guard_scans_the_pp_slice():
         assert m in mods, m
 
 
+def test_guard_scans_the_platform_slice():
+    """The import and source scans reach HAI-Platform's modules and the
+    trace module (no jax, no repro.*); the trace module keeps the one
+    clock the rest of the port reads (``telemetry.now``)."""
+    mods = _port_modules()
+    for m in ("repro_torch.platform", "repro_torch.platform.failures",
+              "repro_torch.platform.scheduler",
+              "repro_torch.platform.validator",
+              "repro_torch.platform.runner", "repro_torch.telemetry",
+              "repro_torch.telemetry.trace"):
+        assert m in mods, m
+    import time
+
+    from repro_torch import telemetry
+    from repro_torch.telemetry import trace
+    assert telemetry.now is trace.now is time.perf_counter
+
+
 # the one import of either outside the tests: the bridge's lazy import,
 # on the path that hands bf16 / e4m3 tensors to numpy (CPU tests only)
 _CARD_ABSENT_OK = {("bridge.py", "ml_dtypes")}
