@@ -38,7 +38,9 @@ Phases (any failure exits non-zero and prints no result line):
    serving path's shapes (decode ticks, T 16 chunks, the dense-cache
    view, a 256-token prefill chunk; bf16, fp8 and int8 pools; d 128 and
    64), at b 8 over S 4096 (several key splits an item) and with edge
-   sequences (only key 0, full capacity, all padding); every case must
+   sequences (only key 0, full capacity, all padding), at the
+   speculative verify window (T 5) and over the self-draft's dense
+   cache of 1 088 positions; every case must
    repeat bitwise and write exact zeros for padding rows, its faults
    include "one split dropped" and "combine rescale dropped", and it is
    timed warm (``ms``) and cold (``ms_cold``, each call on its own copy
@@ -66,7 +68,24 @@ Phases (any failure exits non-zero and prints no result line):
    launch counter is zeroed before each run and must be > 0 after it.
    Then the kernel path and the plain path are held against each other
    on the same prompts: first-token logits and 4 teacher-forced decode
-   ticks through a fragmented paged pool.
+   ticks through a fragmented paged pool.  Then the same trace three
+   more ways: speculation with n-gram drafts (draft_k 4: every verify a
+   T = 5 chunk through the paged kernel), with the target as its own
+   draft model (a dense cache of 1 088 positions a request), and a
+   ``ServingCluster`` of 2 prefill and 2 decode engines sharing the
+   params (every handoff timed and its imported blocks held bitwise
+   against the export), then a flush of every prefix to a 3FS prefix
+   store and one cross-replica store hit.  Gates: (i) each greedy
+   stream equals the plain engine's up to the plain path's first
+   near-tie (top-two gap within E2E_REL_TOL of max |logit|), and past
+   its first difference every token lies within that tolerance of the
+   largest logit, the stream teacher-forced along itself; (ii) a
+   prefill's blocks exported, published, fetched and imported by
+   another engine bitwise in bf16 and e4m3 (codes and scale rows);
+   (iii) planted faults caught: a draft accepted past the first
+   mismatch, a rollback that keeps the rejected tail's blocks (the
+   block tables after every spec tick must cover exactly the accepted
+   tokens), one flipped byte in a fetched artifact.
 4. training end to end: phi4-mini-3.8b at full width (bf16 working
    params, fp32 masters and moments, per-layer remat) — the kernel
    path's loss and gradients on one batch of 2 x 2048 tokens against
@@ -110,7 +129,8 @@ Phases (any failure exits non-zero and prints no result line):
    runs, every serving kernel (the top-k gating forward included)
    launched; logits against the gating-only reference (gate_impl
    "ref") and the whole plain path; one MoE layer at full width against
-   the plain route, with experts rolled by one as a planted fault.
+   the plain route, with experts rolled by one as a planted fault;
+   n-gram speculation on 4 requests of the trace under gate (i).
 7. MoE training: qwen2-moe-a2.7b at full widths with 4 of its 24 layers
    (capacity-limited dispatch): loss and gradients against the plain
    path, the gating-only reference and the plain gating backward (with
@@ -121,7 +141,9 @@ Phases (any failure exits non-zero and prints no result line):
    seed 0) serves the same trace, both runs, every serving kernel (the
    SSD chunk scan included, 38 launches per prompt) launched; logits
    against the SSD-only reference (ssm_impl "ref") and the whole plain
-   path.
+   path; speculation on 4 requests with a drafter proposing 2 true
+   tokens then junk (partial acceptance and the correction pass on every
+   tick) under gate (i), which the correction pass skipped must fail.
 9. hybrid training: zamba2-1.2b at full width and depth: loss and
    gradients against the plain path and against the plain SSD backward
    in place of the kernel's (with planted SSD-backward faults), then 8
@@ -136,8 +158,8 @@ Phases (any failure exits non-zero and prints no result line):
    kernels against the plain quantizer, bitwise, (iv) int8 against
    uncompressed within the quantization bound, (v) planted faults (the
    prescale dropped, a strong rank's shard missing from phase 3, a
-   bucket's hook one leaf early) that (i) or (ii) must catch; then 2
-   steps with each of the uncompressed and int8 wires (overlap on, every
+   bucket's hook one leaf early) that (i) or (ii) must catch; then 1
+   step with each of the uncompressed and int8 wires (overlap on, every
    kernel's launches counted from the ranks), one with overlap off, and
    the hfreduce of the whole gradient with each wire format.
 11. HaiScale pp training: llama-13b at full width (d 5120, 40 heads of
@@ -147,7 +169,7 @@ Phases (any failure exits non-zero and prints no result line):
    batch of 8 x 2048 tokens in 8 microbatches, AdamW.  Gates: (i) the
    gradient the step hands its optimizer at step 1 (gpipe and 1f1b)
    against one process on the whole batch, (ii) gpipe and 1f1b
-   bitwise equal over 3 steps, losses and recorded gradients, (iii)
+   bitwise equal over 2 steps, losses and recorded gradients, (iii)
    planted faults (1F1B's forward storing into the ring before the
    backward reads its slot, a cotangent send dropped, the gradients
    not divided by the microbatch count, stage 1 slicing its layers at
@@ -1429,6 +1451,11 @@ def kernel_phase(dev):
     pc.append(check_paged(dev, kv_dtype="bfloat16", T=16, bs=16, edges=True))
     pc.append(check_paged(dev, kv_dtype="float8_e4m3", T=1, bs=16, cap=4096,
                           edges=True))
+    # the speculative verify window (T = SPEC_K + 1), and the self-draft
+    # model's dense cache (one block of SPEC_DRAFT_MAX_LEN a sequence)
+    pc.append(check_paged(dev, kv_dtype="bfloat16", T=SPEC_K + 1, bs=16))
+    pc.append(check_paged(dev, kv_dtype="bfloat16", T=1, bs=0, b=8,
+                          dense_view=True, cap=SPEC_DRAFT_MAX_LEN))
     hd64 = dict(h=32, kvh=32, d=64)
     for d in (4096, 2048):
         rm.append(check_rmsnorm(dev, 4096, d, save_rstd=True))
@@ -2275,6 +2302,12 @@ def ssd_phase(dev):
 # ------------------------------- end to end ---------------------------------
 
 
+# the profiled serving run (``profiled``) takes the trace's first 4
+# requests: the profiler's processing costs ~30-40 s for the whole trace
+# (PERF.md §6)
+PROFILE_REQUESTS = 4
+
+
 def request_set(vocab, seed=SEED):
     import numpy as np
     rng = np.random.default_rng(seed)
@@ -2481,15 +2514,429 @@ def e2e_phase(dev):
         del got, ref
     for c in cmp:
         print(json.dumps({"e2e_vs_plain": c}), flush=True)
+    # speculation, the cluster and the prefix store on the same trace
+    spec, spec_failures = spec_phase_checks(model, params, cfg, prompts,
+                                            arrivals, tokens, dev)
     # where the whole-prompt cell's time goes (profiler on, so its wall
     # time is not the measurement above)
-    prof = profiled(lambda: e2e_run(model, params, prompts, arrivals, dev,
-                                    0))
+    prof = profiled(lambda: e2e_run(model, params,
+                                    prompts[:PROFILE_REQUESTS],
+                                    arrivals[:PROFILE_REQUESTS], dev, 0))
     print(json.dumps({"profile": prof}), flush=True)
     return {"arch": ARCH, "params": n_params,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
             "runs": runs, "vs_plain": cmp, "rel_tol": E2E_REL_TOL,
-            "profile": prof}
+            "profile": prof, "spec": spec, "spec_failures": spec_failures}
+
+
+# ------------------------ speculation and the cluster ------------------------
+
+SPEC_K = 4                      # drafts a verify window: T = SPEC_K + 1
+# the self-draft's dense cache covers the longest prompt + 32 tokens + k
+# (a multiple of 64); at the default 512 it would propose nothing for
+# the long prompts
+SPEC_DRAFT_MAX_LEN = 1088
+SPEC_ROOT = ROOT / "build" / "spec_phase"
+SPEC_KERNELS = DENSE_SERVING_KERNELS
+
+
+class OracleDrafter:
+    """Proposes ``good`` tokens of a recorded stream, then ``junk`` wrong
+    ones (the previous token + 1): partial acceptance on every tick."""
+
+    def __init__(self, prompts, truth, vocab, good, junk):
+        self.truth = {tuple(int(t) for t in p): [int(t) for t in s]
+                      for p, s in zip(prompts, truth)}
+        self.vocab, self.good, self.junk = vocab, good, junk
+
+    def propose(self, rid, history, k):
+        h = [int(t) for t in history]
+        for p, toks in self.truth.items():
+            if tuple(h[:len(p)]) == p:
+                done = len(h) - len(p)
+                prop = toks[done:done + min(self.good, k)]
+                while len(prop) < min(self.good + self.junk, k):
+                    prop.append((h[-1] + 1) % self.vocab)
+                return prop
+        return []
+
+    def release(self, rid):
+        pass
+
+
+def accept_one_more():
+    """The planted acceptance fault: the first mismatching draft is
+    accepted too (and the bonus read from the row after it)."""
+    from repro_torch.serving import engine as eng_mod
+    from repro_torch.serving.speculative import longest_accept
+
+    def one_more(greedy, drafts, gn, acc, rej, plain):
+        out = longest_accept(greedy, drafts, gn, acc, rej, plain)
+        m = len(out) - 1
+        if m < len(drafts):
+            out = list(drafts[:m + 1]) + [int(gn[m + 1])]
+        return out
+    return [(eng_mod, "longest_accept", one_more)]
+
+
+def rollback_keeps_tail():
+    """The planted rollback fault: the rejected tail's blocks stay."""
+    from repro_torch.serving.paged_cache import PagedKVCache
+    return [(PagedKVCache, "rollback", lambda self, blocks, n: list(blocks))]
+
+
+def fixup_skipped():
+    """The planted hybrid fault: the correction pass skipped."""
+    from repro_torch.serving.engine import ServingEngine
+    return [(ServingEngine, "_spec_fixup", lambda self, *a: None)]
+
+
+def spec_run(model, params, prompts, arrivals, dev, *, gen=32,
+             kernels=SPEC_KERNELS, drafter=None, patches=(), **engine_kw):
+    """One speculative serving run through ``ServingEngine`` (8 slots,
+    block 16, whole-prompt prefill) with the launch counters zeroed
+    before it; ``drafter`` replaces the engine's own.  Each spec tick is
+    wrapped: its paged-kernel launches, its fix-up passes, and the block
+    tables after it (every running request must hold exactly
+    ``blocks_for(length)`` blocks: the rejected tail's are dropped).
+    Returns (record, tokens); fails if a kernel of ``kernels`` never
+    launched."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import engine as eng_mod
+    from repro_torch.telemetry import now
+    Engine = eng_mod.ServingEngine
+    n_blocks = 2 * sum(-(-(len(p) + gen + SPEC_K) // 16) for p in prompts) + 1
+    tick = {"n": 0, "paged": 0, "fixups": 0, "bad_tables": []}
+    step, fixup = Engine._spec_step, Engine._spec_fixup
+
+    def counted(self):
+        before = launch_counts()["paged_chunk_attention"]
+        out = step(self)
+        tick["n"] += 1
+        tick["paged"] += launch_counts()["paged_chunk_attention"] - before
+        tick["bad_tables"] += [
+            (r.rid, r.length, len(r.blocks)) for r in self._slots
+            if r is not None and len(r.blocks) !=
+            self.cache.blocks_for(r.length)]
+        return out
+
+    def fix(self, *a):
+        tick["fixups"] += 1
+        return fixup(self, *a)
+
+    def run():
+        eng = Engine(model, params, device=dev, n_blocks=n_blocks,
+                     block_size=16, max_slots=8, **engine_kw)
+        if drafter is not None:
+            eng.drafter = drafter
+        t0 = now()
+        rids = [eng.submit(p, gen, arrival=a)
+                for p, a in zip(prompts, arrivals)]
+        outs = eng.run()
+        torch.cuda.synchronize()
+        return eng, [outs[r] for r in rids], now() - t0
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    # the counting wrappers first: a planted fault on _spec_fixup
+    # replaces the counted one
+    eng, toks, secs = with_patches(
+        [(Engine, "_spec_step", counted), (Engine, "_spec_fixup", fix)]
+        + list(patches), run)
+    counts = launch_counts()
+    m, st = eng.request_metrics(), eng.stats
+    n_tok = sum(len(t) for t in toks)
+    rec = {"requests": len(prompts), "new_tokens_each": gen,
+           "verify_T": SPEC_K + 1, "seconds": secs,
+           "tokens_per_s": n_tok / secs,
+           "ttft_p50_s": m["ttft"]["p50_s"], "ttft_p95_s": m["ttft"]["p95_s"],
+           "tpot_p50_s": m["tpot"]["p50_s"], "tpot_p95_s": m["tpot"]["p95_s"],
+           "tokens_per_verify_step": st["tokens_per_step"],
+           "accept_rate": st.get("spec_accept_rate"),
+           "spec_ticks": tick["n"], "fixup_passes": tick["fixups"],
+           "paged_launches_per_spec_tick": tick["paged"] / max(tick["n"], 1),
+           "tables_past_accepted": len(tick["bad_tables"]),
+           "engine_steps": eng.step_count, "evictions": eng.evictions,
+           "launches": counts}
+    if any(len(t) != gen for t in toks):
+        raise AssertionError(f"wrong token counts: {[len(t) for t in toks]}")
+    dead = [k for k in kernels if counts[k] <= 0]
+    if dead:
+        raise AssertionError(f"kernels never launched on the spec path: "
+                             f"{dead}")
+    return rec, toks
+
+
+def stream_gate(model, params, prompts, plain, streams, dev, tol, **labels):
+    """Gate (i): a greedy stream against the plain engine's stream of the
+    same prompts.  Equal to the end passes.  Else, at the first
+    differing position, the plain path (the stream teacher-forced
+    through ``teacher_forced``) must have a near-tie somewhere at or
+    before it (top-two logit gap within ``tol`` of max |logit|), and from
+    there on every token of the stream, teacher-forced along the stream
+    itself, must lie within ``tol`` of max |logit| of that position's
+    largest logit."""
+    import numpy as np
+    import torch
+    diff = [i for i, (p, s) in enumerate(zip(plain, streams))
+            if not np.array_equal(p, s)]
+    rows = []
+    if diff:
+        sub = [prompts[i] for i in diff]
+        n = len(plain[diff[0]])
+        lp = teacher_forced(model, params, sub, [plain[i] for i in diff],
+                            dev, n_ticks=n - 1)
+        ls = teacher_forced(model, params, sub, [streams[i] for i in diff],
+                            dev, n_ticks=n - 1)
+        for j, i in enumerate(diff):
+            first = int(np.flatnonzero(np.asarray(plain[i])
+                                       != np.asarray(streams[i]))[0])
+            top2 = lp[:, j].topk(2, dim=-1).values
+            scale = lp[:, j].abs().amax(-1)
+            near = ((top2[:, 0] - top2[:, 1]) <= tol * scale).cpu()
+            t_near = int(torch.nonzero(near)[0]) if bool(near.any()) else n
+            tok = torch.as_tensor(np.asarray(streams[i]), device=dev).long()
+            own = ls[:, j].gather(1, tok[:, None])[:, 0]
+            lag = ((ls[:, j].amax(-1) - own)
+                   / ls[:, j].abs().amax(-1)).cpu()
+            worst = float(lag[first:].max())
+            rows.append({"request": i, "first_difference": first,
+                         "first_near_tie": t_near,
+                         "max_lag_from_first_difference": worst,
+                         "ok": t_near <= first and worst <= tol})
+        del lp, ls
+    return {**labels, "streams": len(streams),
+            "equal_to_end": len(streams) - len(diff), "tol": tol,
+            "differing": rows, "ok": all(r["ok"] for r in rows)}
+
+
+def store_roundtrip(model, params, prompt, dev, kv_dtype, root, flip=False):
+    """Gate (ii): a prefill's blocks exported on one engine, published
+    to a 3FS prefix store, fetched and imported by another engine's
+    store restore, re-exported: bitwise equal to the export (codes and
+    scale rows).  ``flip``: one byte of the fetched artifact flipped,
+    the last byte of its last array's data (the artifact ends with the
+    key "extras" and an empty map, 8 bytes); a planted fault."""
+    import shutil
+
+    import torch
+    from repro_torch.fs3 import FS3KV, FS3Client, FS3Cluster
+    from repro_torch.serve_lib import _prefix_key
+    from repro_torch.serving import FS3PrefixStore, ServingEngine
+    shutil.rmtree(root, ignore_errors=True)
+    store = FS3PrefixStore(FS3KV(FS3Client(FS3Cluster(
+        str(root), n_nodes=2, targets_per_node=1, replication=1))),
+        tag=f"phi4_{kv_dtype}")
+    kw = dict(device=dev, n_blocks=2 * -(-len(prompt) // 16) + 2,
+              block_size=16, max_slots=1, kv_dtype=kv_dtype)
+    src = ServingEngine(model, params, prefill_role=True, **kw)
+    rid = src.submit(prompt, 1, keep_blocks=True)
+    while rid not in src._done:
+        src.step()
+    art = src.export_request(rid)
+    key = _prefix_key(prompt)
+    store.publish(key, {"length": art["length"],
+                        "first_token": art["first_token"],
+                        "blocks": art["blocks"], "extras": {}})
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in art["blocks"].values())
+    if flip:
+        get = store.kv.get
+
+        def flipped(path, default=None):
+            raw = bytearray(get(path, default))
+            raw[-9] ^= 0xFF
+            return bytes(raw)
+        store.kv.get = flipped
+    dst = ServingEngine(model, params, prefix_store=store, **kw)
+    restored = dst._restore_from_store(prompt)
+    ids = dst.cache._prefix[key][0]
+    back = dst.cache.export_blocks(ids)
+    same = restored and list(back) == list(art["blocks"]) and all(
+        torch.equal(back[k].view(torch.uint8), art["blocks"][k].view(
+            torch.uint8)) for k in back)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"kv_dtype": kv_dtype, "flipped_byte": flip,
+            "arrays": sorted(back), "bytes": nbytes, "bitwise": bool(same)}
+
+
+def cluster_run(model, params, prompts, arrivals, dev, gen=32):
+    """(c): a ``ServingCluster`` of 2 prefill and 2 decode engines (one
+    params tree, 8 slots each, block 16) serves the trace with its
+    arrivals, every handoff timed (export, import; each ends in a
+    synchronise) and its imported blocks held bitwise against the
+    export; then every replica's prefixes are flushed to a 3FS prefix
+    store and prompt 2 is served again: one store hit on a prefill
+    replica, the same stream.  The store's root is removed after."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.fs3 import FS3KV, FS3Client, FS3Cluster
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (FS3PrefixStore, PagedKVCache,
+                                     ServingCluster, ServingEngine)
+    from repro_torch.telemetry import now
+    root = SPEC_ROOT / "cluster_store"
+    shutil.rmtree(root, ignore_errors=True)
+    store = FS3PrefixStore(FS3KV(FS3Client(FS3Cluster(
+        str(root), n_nodes=2, targets_per_node=1, replication=1))),
+        tag="phi4")
+    hand = {"export_s": [], "import_s": [], "bytes": [], "imports": 0,
+            "import_mismatch": 0}
+    export, imp = ServingEngine.export_request, PagedKVCache.import_blocks
+
+    def timed_export(self, rid):
+        torch.cuda.synchronize()
+        t0 = now()
+        art = export(self, rid)
+        hand["export_s"].append(now() - t0)
+        hand["bytes"].append(sum(t.numel() * t.element_size()
+                                 for t in art["blocks"].values()))
+        return art
+
+    def checked_import(self, ids, data):
+        torch.cuda.synchronize()
+        t0 = now()
+        imp(self, ids, data)
+        torch.cuda.synchronize()
+        hand["import_s"].append(now() - t0)
+        hand["imports"] += 1
+        back = self.export_blocks(ids)
+        if not all(torch.equal(back[k].view(torch.uint8),
+                               torch.as_tensor(data[k]).view(torch.uint8))
+                   for k in back):
+            hand["import_mismatch"] += 1
+
+    n_blocks = 2 * sum(-(-(len(p) + gen) // 16) for p in prompts) + 1
+
+    def run():
+        clu = ServingCluster(model, params, prefill_replicas=2,
+                             decode_replicas=2, prefix_store=store,
+                             engine_kwargs=dict(n_blocks=n_blocks,
+                                                block_size=16, max_slots=8),
+                             device=dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = now()
+        crids = [clu.submit(p, gen, arrival=a)
+                 for p, a in zip(prompts, arrivals)]
+        outs = clu.run()
+        torch.cuda.synchronize()
+        secs = now() - t0
+        counts = launch_counts()
+        flushed = clu.flush_prefixes()
+        hits0 = clu.stats()["store_hits"]
+        again = clu.submit(prompts[2], gen)
+        out2 = clu.run()[again]
+        return clu, [outs[c] for c in crids], secs, counts, flushed, \
+            clu.stats()["store_hits"] - hits0, out2
+    clu, toks, secs, counts, flushed, hits, out2 = with_patches(
+        [(ServingEngine, "export_request", timed_export),
+         (PagedKVCache, "import_blocks", checked_import)], run)
+    shutil.rmtree(root, ignore_errors=True)
+    m, st = clu.request_metrics(), clu.stats()
+    n_tok = sum(len(t) for t in toks)
+    rec = {"prefill_replicas": 2, "decode_replicas": 2,
+           "requests": len(prompts), "new_tokens_each": gen,
+           "seconds": secs, "tokens_per_s": n_tok / secs,
+           "ttft_p50_s": m["ttft"]["p50_s"], "ttft_p95_s": m["ttft"]["p95_s"],
+           "tpot_p50_s": m["tpot"]["p50_s"], "tpot_p95_s": m["tpot"]["p95_s"],
+           "cluster_steps": clu.step_count, "evictions": st["evictions"],
+           "handoffs": len(hand["export_s"]),
+           "export_s": hand["export_s"], "import_s": hand["import_s"],
+           "handoff_bytes": hand["bytes"],
+           "imports_checked": hand["imports"],
+           "imports_bitwise": hand["import_mismatch"] == 0,
+           "prefixes_flushed": flushed,
+           "store_publishes": store.publishes, "store_hits": hits,
+           "store_hit_stream_equal": bool(np.array_equal(out2, toks[2])),
+           "launches": counts}
+    return rec, toks
+
+
+def spec_phase_checks(model, params, cfg, prompts, arrivals, plain, dev):
+    """The phi4 serving phase's speculative and cluster checks on the
+    trace (``plain``: the plain engine's streams of this phase): (a)
+    n-gram drafting, (b) the target as its own draft model, (c) the
+    cluster with a cross-replica store hit; gates (i) on every stream,
+    (ii) the store round trip in bf16 and e4m3, (iii) the planted
+    faults (one draft accepted past the first mismatch, a rollback that
+    keeps the tail's blocks, one flipped byte in a fetched artifact).
+    Returns (record, failures)."""
+    failures, out = [], {}
+    runs = {}
+    for label, kw in (("ngram", dict(spec_mode="ngram", draft_k=SPEC_K)),
+                      ("draft-model", dict(
+                          spec_mode="draft-model", draft_k=SPEC_K,
+                          draft_model=model, draft_params=params,
+                          draft_max_len=SPEC_DRAFT_MAX_LEN))):
+        rec, toks = spec_run(model, params, prompts, arrivals, dev, **kw)
+        rec["gate_i"] = stream_gate(model, params, prompts, plain, toks, dev,
+                                    E2E_REL_TOL, run=label)
+        runs[label] = rec
+        print(json.dumps({"spec": {"mode": label, **rec}}), flush=True)
+    rec, toks = cluster_run(model, params, prompts, arrivals, dev)
+    rec["gate_i"] = stream_gate(model, params, prompts, plain, toks, dev,
+                                E2E_REL_TOL, run="cluster")
+    runs["cluster"] = rec
+    print(json.dumps({"cluster": rec}), flush=True)
+    for label, r in runs.items():
+        if not r["gate_i"]["ok"]:
+            failures.append(f"phi4 {label}: gate (i) failed: {r['gate_i']}")
+        if label != "cluster":
+            if r["paged_launches_per_spec_tick"] <= 0:
+                failures.append(f"phi4 {label}: no paged launch a spec tick")
+            if r["tables_past_accepted"]:
+                failures.append(f"phi4 {label}: block tables past the "
+                                f"accepted tokens after a tick")
+    c = runs["cluster"]
+    if not (c["imports_bitwise"] and c["store_hits"] == 1
+            and c["store_hit_stream_equal"] and c["imports_checked"] > 0):
+        failures.append(f"phi4 cluster: handoff / store gate failed: {c}")
+    # gate (ii) in bf16 and e4m3, and the flipped byte
+    store = [store_roundtrip(model, params, prompts[2], dev, kv, SPEC_ROOT
+                             / "store") for kv in (None, "float8_e4m3")]
+    flipped = store_roundtrip(model, params, prompts[2], dev, "float8_e4m3",
+                              SPEC_ROOT / "store", flip=True)
+    print(json.dumps({"spec_store_roundtrip": store + [flipped]}),
+          flush=True)
+    failures += [f"phi4 store round trip not bitwise: {r}" for r in store
+                 if not r["bitwise"]]
+    # planted faults on 2 requests (prompts 0 and 4, 64 and 96 tokens),
+    # an oracle proposing 1 true token then junk: partial acceptance on
+    # every tick, and over 32 tokens rejected tails that cross a block
+    # boundary in both
+    sub = [prompts[0], prompts[4]]
+    truth = [plain[0], plain[4]]
+    controls = []
+    for fault, patches in (("none (the control)", ()),
+                           ("one draft accepted past the first mismatch",
+                            accept_one_more()),
+                           ("rollback keeps the rejected tail's blocks",
+                            rollback_keeps_tail())):
+        rec, toks = spec_run(
+            model, params, sub, [0, 0], dev,
+            drafter=OracleDrafter(sub, truth, cfg.vocab_size, 1, 3),
+            patches=patches, spec_mode="ngram", draft_k=SPEC_K)
+        gate = stream_gate(model, params, sub, truth, toks, dev,
+                           E2E_REL_TOL, run=fault)
+        ok = gate["ok"] and rec["tables_past_accepted"] == 0
+        controls.append({"fault": fault, "gate_i_ok": gate["ok"],
+                         "tables_past_accepted":
+                         rec["tables_past_accepted"],
+                         "accept_rate": rec["accept_rate"],
+                         "caught": not ok})
+    controls.append({"fault": "one byte of a fetched artifact flipped",
+                     "caught": not flipped["bitwise"]})
+    print(json.dumps({"spec_controls": controls}), flush=True)
+    if controls[0]["caught"]:
+        failures.append(f"phi4 oracle speculation (no fault) failed its "
+                        f"gates: {controls[0]}")
+    failures += [f"phi4 spec: planted fault '{c['fault']}' passed"
+                 for c in controls[1:] if not c["caught"]]
+    out = {"runs": runs, "store_roundtrip": store, "controls": controls}
+    return out, failures
 
 
 # -------------------------------- training ----------------------------------
@@ -3379,8 +3826,17 @@ def moe_serve_phase(dev):
     del bad, plain0
     for c in cmp + fault:
         print(json.dumps({"moe_e2e_vs_plain": c}), flush=True)
+    # n-gram speculation on 4 requests of the trace, gate (i)
+    spec, toks = spec_run(model, params, prompts[:4], arrivals[:4], dev,
+                          kernels=SERVING_KERNELS, spec_mode="ngram",
+                          draft_k=SPEC_K)
+    spec["gate_i"] = stream_gate(model, params, prompts[:4], tokens[:4],
+                                 toks, dev, MOE_E2E_REL_TOL, run="moe ngram")
+    print(json.dumps({"moe_spec": spec}), flush=True)
     layer = moe_layer_check(cfg, params, dev)
-    prof = profiled(lambda: e2e_run(model, params, prompts, arrivals, dev, 0,
+    prof = profiled(lambda: e2e_run(model, params,
+                                    prompts[:PROFILE_REQUESTS],
+                                    arrivals[:PROFILE_REQUESTS], dev, 0,
                                     kernels=SERVING_KERNELS))
     print(json.dumps({"moe_profile": prof}), flush=True)
     out = {"arch": MOE_ARCH, "params": n_params,
@@ -3388,10 +3844,13 @@ def moe_serve_phase(dev):
            "runs": runs, "vs_plain": cmp, "gate_only_bf16_ulps":
            MOE_GATE_LOGIT_ULPS, "rel_tol": MOE_E2E_REL_TOL,
            "fault_rel_max": max(r["rel"] for r in fault),
-           "layer_vs_plain": layer, "profile": prof}
+           "layer_vs_plain": layer, "profile": prof, "spec": spec}
     del params
     torch.cuda.empty_cache()
     failures = [f"moe serving {c['route']}: {c}" for c in cmp if not c["ok"]]
+    if not (spec["gate_i"]["ok"] and spec["paged_launches_per_spec_tick"] > 0
+            and spec["tables_past_accepted"] == 0):
+        failures.append(f"moe speculation: {spec}")
     failures += [f"moe layer, {r['tokens']} tokens: {r}" for r in layer
                  if not r["ok"] or not r["fault_caught"]]
     return out, failures
@@ -3634,6 +4093,31 @@ def hybrid_serve_phase(dev):
         runs.append(out)
         tokens = tokens or toks
         print(json.dumps({"hybrid_e2e": out}), flush=True)
+    # speculation with partial acceptance on every tick (2 true drafts,
+    # then junk) on 4 requests, gate (i); the correction pass skipped
+    # must fail it
+    spec = {}
+    for fault, patches in (("none", ()),
+                           ("correction pass skipped", fixup_skipped())):
+        rec, toks = spec_run(
+            model, params, prompts[:4], arrivals[:4], dev,
+            kernels=HYBRID_SERVING_KERNELS, patches=patches,
+            drafter=OracleDrafter(prompts[:4], tokens[:4], cfg.vocab_size,
+                                  2, 2), spec_mode="ngram", draft_k=SPEC_K)
+        rec["gate_i"] = stream_gate(model, params, prompts[:4], tokens[:4],
+                                    toks, dev, HYBRID_E2E_REL_TOL,
+                                    run=f"hybrid oracle, fault: {fault}")
+        spec[fault] = rec
+        print(json.dumps({"hybrid_spec": {"fault": fault, **rec}}),
+              flush=True)
+    good = spec["none"]
+    if not (good["gate_i"]["ok"] and good["fixup_passes"] > 0
+            and 0.0 < good["accept_rate"] < 1.0
+            and good["tables_past_accepted"] == 0):
+        failures.append(f"hybrid speculation: {good}")
+    if spec["correction pass skipped"]["gate_i"]["ok"]:
+        failures.append("hybrid speculation: planted fault 'correction "
+                        "pass skipped' passed gate (i)")
     ssd_ref = build_model(dataclasses.replace(cfg, ssm_impl="ref"))
     plain = build_model(dataclasses.replace(cfg, attn_impl="ref",
                                             norm_impl="ref", ssm_impl="ref"))
@@ -3716,7 +4200,9 @@ def hybrid_serve_phase(dev):
     print(json.dumps({"hybrid_slow_decay_op": slow_op,
                       "hybrid_serve_controls": controls,
                       "hybrid_ssd_gate_probe": probe_rows}), flush=True)
-    prof = profiled(lambda: e2e_run(model, params, prompts, arrivals, dev, 0,
+    prof = profiled(lambda: e2e_run(model, params,
+                                    prompts[:PROFILE_REQUESTS],
+                                    arrivals[:PROFILE_REQUESTS], dev, 0,
                                     kernels=HYBRID_SERVING_KERNELS))
     print(json.dumps({"hybrid_profile": prof}), flush=True)
     out = {"arch": HYBRID_ARCH, "params": n_params,
@@ -3725,7 +4211,8 @@ def hybrid_serve_phase(dev):
            "controls": controls, "recorded": recorded,
            "ssd_gate_probe": probe_rows,
            "ssd_only_bf16_ulps": HYBRID_SSD_LOGIT_ULPS,
-           "rel_tol": HYBRID_E2E_REL_TOL, "profile": prof}
+           "rel_tol": HYBRID_E2E_REL_TOL, "profile": prof,
+           "spec": spec["none"]}
     del params
     torch.cuda.empty_cache()
     failures += [f"hybrid serving {c['route']}: {c}" for c in cmp
@@ -4061,7 +4548,7 @@ DDP_ARCH = "gpt2-medium"
 DDP_PODS, DDP_DATA = 2, 4
 # 2 timed steps a wire: every kernel's launches per step within the
 # script's time limit (the gates read step 1's gradient)
-DDP_BATCH, DDP_SEQ, DDP_STEPS = 2, 1024, 2
+DDP_BATCH, DDP_SEQ, DDP_STEPS = 2, 1024, 1
 DDP_WIRES = ("", "bf16", "fp8", "int8")
 # gate (i), the synced uncompressed gradient against one process on the
 # global batch: the training gates above (both sides bf16; the synced one
@@ -4484,7 +4971,7 @@ def ddp_phase(dev):
 # card.  Two ranks share the card over host-staged gloo, as the DDP phase's
 PP_ARCH = "llama-13b"
 PP_LAYERS, PP_STAGES = 4, 2
-PP_BATCH, PP_SEQ, PP_MICRO, PP_STEPS = 8, 2048, 8, 3
+PP_BATCH, PP_SEQ, PP_MICRO, PP_STEPS = 8, 2048, 8, 2
 PP_ROOT = ROOT / "build" / "pp_phase"
 PP_SLOT_FAULT = "1F1B writes the slot before the backward reads it"
 PP_FAULTS = {
@@ -4804,14 +5291,14 @@ FT_ROOT = ROOT / "build" / "ft_phase"
 # (3FS chains of one target: a checkpoint of the full state is 4.9 GB,
 # and the card machine's disk writes ~0.85 GB/s; the unbroken runs fork
 # from the drill's state where the failure strikes)
-FT_DRILL = dict(steps=7, ckpt_every=4, kill_at=5, batch=4, seq=1024,
+FT_DRILL = dict(steps=6, ckpt_every=3, kill_at=4, batch=4, seq=1024,
                 pp_microbatches=2, replication=1, fork_ref=True,
                 validator=(("gemm_n", 1024), ("mem_mb", 256),
                            ("storage_mb", 64)))
-# leg 1 needs no 3 post-restore steps: 5 steps, a checkpoint every 3,
-# the failure before step 4 (a ddp + ZeRO-1 step on 4 ranks is the
+# leg 1 needs no 3 post-restore steps: 4 steps, a checkpoint every 2,
+# the failure before step 3 (a ddp + ZeRO-1 step on 4 ranks is the
 # drill's slowest)
-FT_SAME_DRILL = dict(FT_DRILL, steps=5, ckpt_every=3, kill_at=4)
+FT_SAME_DRILL = dict(FT_DRILL, steps=4, ckpt_every=2, kill_at=3)
 # the faults' smoke runs: the validator at the JAX tests' sizes
 FT_SMOKE_VALIDATOR = (("gemm_n", 64), ("mem_mb", 2), ("storage_mb", 1))
 FT_LR = 3e-4
@@ -4873,6 +5360,14 @@ def torch_cleanup():
     torch.cuda.empty_cache()
 
 
+def ft_ckpt_records(drill):
+    """The checkpoint records of one drill under ``FTRunner.run``: the
+    blocking save at the start, one at every step reached that is a
+    multiple of ckpt_every (before the failure and again after the
+    restore), and the final blocking save."""
+    return 2 + drill["steps"] // drill["ckpt_every"]
+
+
 def ft_same_plan_gate(r, drill, rank):
     """The same-plan leg's verdict on one rank's result: [] or what
     failed."""
@@ -4889,8 +5384,8 @@ def ft_same_plan_gate(r, drill, rank):
     if got != (1, 1, 0, 2, lost):
         bad.append(f"rank {rank}: failures, restores, rescales, world, "
                    f"lost steps {got} != {(1, 1, 0, 2, lost)}")
-    bad += _ft_events(r, rank, {"ckpt": 3, "failure": 1, "validator": 1,
-                                "restore": 1})
+    bad += _ft_events(r, rank, {"ckpt": ft_ckpt_records(drill),
+                                "failure": 1, "validator": 1, "restore": 1})
     if not all(math.isfinite(x) for x in r["losses"]):
         bad.append(f"rank {rank}: losses not finite")
     return bad
@@ -4901,7 +5396,8 @@ def ft_cross_plan_gate(r, drill, rank):
     lost = drill["kill_at"] - drill["kill_at"] // drill["ckpt_every"] * \
         drill["ckpt_every"]
     if rank >= 2:
-        want = ["ckpt", "ckpt", "failure", "validator"]
+        want = ["ckpt"] * (1 + drill["kill_at"] // drill["ckpt_every"]) \
+            + ["failure", "validator"]
         events = [k for k in r.get("events", []) if k != "straggler"]
         if r.get("left_at") != drill["kill_at"] or events != want:
             return [f"rank {rank} (leaving): left at {r.get('left_at')} "
@@ -4920,8 +5416,9 @@ def ft_cross_plan_gate(r, drill, rank):
     if got != (1, 1, 1, 1, lost):
         bad.append(f"rank {rank}: failures, restores, rescales, world, "
                    f"lost steps {got} != {(1, 1, 1, 1, lost)}")
-    bad += _ft_events(r, rank, {"ckpt": 3, "failure": 1, "validator": 1,
-                                "restore": 1, "rescale": 1})
+    bad += _ft_events(r, rank, {"ckpt": ft_ckpt_records(drill),
+                                "failure": 1, "validator": 1, "restore": 1,
+                                "rescale": 1})
     return bad
 
 
@@ -5181,6 +5678,7 @@ def main():
     for c in e2e["vs_plain"]:
         if not c["ok"]:
             failures.append(f"e2e kernel vs plain: {c}")
+    failures += e2e["spec_failures"]
     torch.cuda.empty_cache()
     train, train_failures = timed("phi4 training", lambda: train_phase(dev))
     print(json.dumps({"train": train}), flush=True)
@@ -5237,6 +5735,16 @@ def main():
                 runs[key] = run["launches"][name]
                 per_step[f"{key} (per engine step)"] = \
                     run["launches_per_step"][name]
+        for arch, recs in ((ARCH, e2e["spec"]["runs"]),
+                           (MOE_ARCH, {"ngram": moe_e2e["spec"]}),
+                           (HYBRID_ARCH, {"oracle": hybrid_e2e["spec"]})):
+            for label, rec in recs.items():
+                if rec["launches"].get(name, 0):
+                    key = f"{arch} serve {label}"
+                    runs[key] = rec["launches"][name]
+                    if "spec_ticks" in rec:
+                        per_step[f"{key} (per spec tick)"] = \
+                            rec["launches"][name] / rec["spec_ticks"]
         if name in TRAIN_KERNELS and "resume" in ckpt:
             key = f"{ARCH} {CKPT_LAYERS} layers, checkpoint resume " \
                   f"{CKPT_STEPS - CKPT_SAVE_AT} steps"
@@ -5310,6 +5818,22 @@ def main():
                                  "free_disk_bytes", "save", "restore",
                                  "cross_plan", "seconds")},
         "probe_bitwise": ckpt.get("probe", {}).get("bitwise")}}), flush=True)
+    keys = ("seconds", "tokens_per_s", "ttft_p50_s", "ttft_p95_s",
+            "tpot_p50_s", "tpot_p95_s", "tokens_per_verify_step",
+            "accept_rate", "paged_launches_per_spec_tick", "export_s",
+            "import_s", "handoff_bytes", "store_hits")
+    print(json.dumps({"spec_summary": {
+        "card": card, "plain": {k: e2e["runs"][0][k] for k in (
+            "seconds", "tokens_per_s", "ttft_p50_s", "ttft_p95_s",
+            "tpot_p50_s", "tpot_p95_s")},
+        **{f"{ARCH} {label}": {k: r[k] for k in keys if k in r} | {
+            "equal_to_end": r["gate_i"]["equal_to_end"]}
+           for label, r in e2e["spec"]["runs"].items()},
+        f"{MOE_ARCH} ngram": {k: moe_e2e["spec"][k] for k in keys
+                              if k in moe_e2e["spec"]},
+        f"{HYBRID_ARCH} oracle": {k: hybrid_e2e["spec"][k] for k in keys
+                                  if k in hybrid_e2e["spec"]},
+        "controls": e2e["spec"]["controls"]}}), flush=True)
     for label, serve in (("moe_serve_summary", moe_e2e),
                          ("hybrid_serve_summary", hybrid_e2e)):
         print(json.dumps({label: {

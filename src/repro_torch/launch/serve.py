@@ -5,14 +5,24 @@ continuous-batching engine (``--decode-impl paged``).
       --decode-impl paged --batch 8 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \\
       --smoke --device cpu --decode-impl paged --stagger 2 --prefill-chunk 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
+      --decode-impl paged --spec-mode ngram --draft-k 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
+      --decode-impl paged --replicas 2 --prefill-replicas 2 \\
+      --slo-ttft-ms 500 --slo-tpot-ms 100
 
 Runs on the card by default (``--device cuda``) and stops with an error
 when there is none; ``--device cpu`` runs the plain PyTorch path.  At
 full width the weights are drawn once in the compute dtype (``--dtype``,
 default the config's bfloat16); ``--smoke`` runs the reduced config in
-float32.  Weights are random, drawn from ``--seed``.  ``--trace PATH``
-writes the run's spans (``engine.prefill_chunk``, ``engine.decode_tick``
-or ``serve.dense_*``) as Chrome-trace JSON at exit.
+float32.  Weights are random, drawn from ``--seed``.  ``--spec-mode``
+speculates on the paged path (n-gram prompt lookup, or a draft model:
+the target arch at half its layers with its own random weights);
+``--replicas N`` serves through a ``ServingCluster`` of
+``--prefill-replicas`` prefill and N decode engines (speculation rides
+the decode leg).  ``--trace PATH`` writes the run's spans
+(``engine.prefill_chunk``, ``engine.decode_tick``, ``engine.spec_tick``,
+``router.route_*`` or ``serve.dense_*``) as Chrome-trace JSON at exit.
 """
 from __future__ import annotations
 
@@ -67,6 +77,22 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--kv-dtype", default=None,
                     choices=("bfloat16", "float8_e4m3", "int8"))
+    ap.add_argument("--spec-mode", default="off",
+                    choices=("off", "ngram", "draft-model"),
+                    help="paged: speculative decoding (greedy streams stay "
+                         "those of --spec-mode off)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="spec: drafts proposed and verified per slot a "
+                         "step")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="paged: decode replicas of a disaggregated "
+                         "ServingCluster (0 = one engine)")
+    ap.add_argument("--prefill-replicas", type=int, default=1,
+                    help="cluster: prefill replicas (with --replicas > 0)")
+    ap.add_argument("--slo-ttft-ms", type=float, default=1000.0,
+                    help="cluster: the router's TTFT target (ms)")
+    ap.add_argument("--slo-tpot-ms", type=float, default=200.0,
+                    help="cluster: the router's TPOT target (ms)")
     ap.add_argument("--metrics", action="store_true")
     ap.add_argument("--trace", default="",
                     help="write a Chrome-trace JSON (chrome://tracing / "
@@ -88,6 +114,8 @@ def main(argv=None):
         writer = TraceWriter()
         install_writer(writer)
     try:
+        if impl == "paged" and args.replicas > 0:
+            return _serve_cluster(model, params, tokens, args, device)
         if impl == "paged":
             return _serve_paged(model, params, tokens, args, device)
         return _serve_dense(model, params, tokens, args, device)
@@ -178,26 +206,85 @@ def serve_paged(model, params, prompts, gen: int, *, arrivals=None,
             "seconds": now() - t0}
 
 
+def _spec_kwargs(model, args, device):
+    """Engine kwargs of ``--spec-mode``.  The draft-model demo builds the
+    target arch at half its layers with its own random weights (a
+    stand-in for a distilled draft model sharing the tokenizer)."""
+    if args.spec_mode == "off":
+        return {}
+    kw = {"spec_mode": args.spec_mode, "draft_k": args.draft_k}
+    if args.spec_mode == "draft-model":
+        from repro_torch.models import build_model
+        dcfg = dataclasses.replace(model.cfg,
+                                   n_layers=max(1, model.cfg.n_layers // 2))
+        dmodel = build_model(dcfg)
+        kw["draft_model"] = dmodel
+        kw["draft_params"] = dmodel.init(args.seed + 1, device=device,
+                                         dtype=dcfg.compute_dtype)
+    return kw
+
+
+def _n_blocks(args) -> int:
+    return args.n_blocks or (
+        args.batch * (-(-(args.prompt_len + args.gen) // args.block_size))
+        * 2 + 1)
+
+
 def _serve_paged(model, params, tokens, args, device):
     """Continuous batching: requests join a running decode batch at
     their arrival step."""
     tokens = np.asarray(tokens)
-    n_blocks = args.n_blocks or (
-        args.batch * (-(-(args.prompt_len + args.gen) // args.block_size))
-        * 2 + 1)
     res = serve_paged(model, params, list(tokens), args.gen,
                       arrivals=[i * args.stagger for i in range(len(tokens))],
-                      device=device, n_blocks=n_blocks,
+                      device=device, n_blocks=_n_blocks(args),
                       block_size=args.block_size, max_slots=args.batch,
                       prefill_chunk=args.prefill_chunk,
                       temperature=args.temperature, top_k=args.top_k,
-                      seed=args.seed, kv_dtype=args.kv_dtype)
+                      seed=args.seed, kv_dtype=args.kv_dtype,
+                      **_spec_kwargs(model, args, device))
     engine = res["engine"]
-    print(f"paged: {args.batch * args.gen} tokens over {engine.step_count} "
-          f"engine steps in {res['seconds']:.3f}s")
+    mode = "" if args.spec_mode == "off" else \
+        f" (spec {args.spec_mode}, draft_k {args.draft_k})"
+    print(f"paged{mode}: {args.batch * args.gen} tokens over "
+          f"{engine.step_count} engine steps in {res['seconds']:.3f}s")
     if args.metrics:
         _print_stats(dict(engine.stats), engine.request_metrics())
     return np.stack(res["tokens"])
+
+
+def _serve_cluster(model, params, tokens, args, device):
+    """Disaggregated serving: M prefill + N decode replicas behind the
+    SLO router, each request's state handed off between the roles."""
+    from repro_torch.serving import ServingCluster
+
+    tokens = np.asarray(tokens)
+    clu = ServingCluster(model, params,
+                         prefill_replicas=args.prefill_replicas,
+                         decode_replicas=args.replicas,
+                         slo_ttft_ms=args.slo_ttft_ms,
+                         slo_tpot_ms=args.slo_tpot_ms,
+                         temperature=args.temperature, top_k=args.top_k,
+                         seed=args.seed, device=device,
+                         engine_kwargs=dict(n_blocks=_n_blocks(args),
+                                            block_size=args.block_size,
+                                            max_slots=args.batch,
+                                            prefill_chunk=args.prefill_chunk,
+                                            kv_dtype=args.kv_dtype),
+                         # speculation rides the decode leg only
+                         decode_engine_kwargs=_spec_kwargs(model, args,
+                                                           device))
+    crids = [clu.submit(row, args.gen, arrival=i * args.stagger)
+             for i, row in enumerate(tokens)]
+    t0 = now()
+    outs = clu.run()
+    t_total = now() - t0
+    print(f"cluster ({args.prefill_replicas}P+{args.replicas}D, SLO "
+          f"ttft<{args.slo_ttft_ms:g}ms tpot<{args.slo_tpot_ms:g}ms): "
+          f"{args.batch * args.gen} tokens over {clu.step_count} cluster "
+          f"steps in {t_total:.3f}s")
+    if args.metrics:
+        _print_stats(clu.stats(), clu.request_metrics())
+    return np.stack([outs[r] for r in crids])
 
 
 if __name__ == "__main__":

@@ -16,26 +16,28 @@ list of physical block ids and logical position ``p`` lives at block
   non-KV state after the prompt (the hybrid's mamba states), which
   blocks cannot reconstruct.
 
+``rollback`` truncates a sequence's table after a speculative verify
+(host bookkeeping only); ``export_blocks`` / ``import_blocks`` move
+block contents (with the scale rows of quantized pools, raw codes, no
+requantization) between pools as host tensors, the wire format of the
+cluster's prefill -> decode handoff and of its 3FS prefix store; an
+``on_prefix_evict`` hook publishes an LRU-dropped prefix entry before
+its blocks are freed.
+
 Pool writes are in place: where the JAX cache rebinds donated buffers,
 the port updates its one copy.  Quantized pools (float8_e4m3, int8)
 carry per-token fp32 scales (layers, n_blocks, bs) beside them.
 """
 from __future__ import annotations
 
-import hashlib
-
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models.attention import KV_DTYPES, bits, quantize_kv
-
-
-def _prefix_key(tokens: np.ndarray) -> str:
-    """Prompt identity for the prefix index (the JAX package's
-    ``serve_lib._prefix_key``)."""
-    h = hashlib.sha256(np.ascontiguousarray(tokens, np.int32).tobytes())
-    return h.hexdigest()[:32]
+# one prefix identity across the serving stack: the paged index, the 3FS
+# prefix store and the context cache agree on what "same prompt" means
+from repro_torch.serve_lib import _prefix_key
 
 
 class PagedKVCache:
@@ -72,6 +74,10 @@ class PagedKVCache:
         self._prefix_lru: list[str] = []
         self.hits = 0
         self.misses = 0
+        # cluster hook: on_prefix_evict(key, ids, length, first_token,
+        # extras), called before an LRU-dropped prefix entry's blocks are
+        # freed (the engine publishes them to the 3FS prefix store)
+        self.on_prefix_evict = None
 
     # ------------------------------ allocator ------------------------------
 
@@ -105,6 +111,22 @@ class PagedKVCache:
             if self.refcount[i] == 0:
                 self._free.append(i)
 
+    def rollback(self, blocks: list, n_tokens: int) -> list:
+        """Truncate a sequence's block table to cover exactly ``n_tokens``
+        cached positions, dropping one reference on each block past
+        ``blocks_for(n_tokens)`` (a speculative verify wrote K/V past the
+        accepted position).  Host bookkeeping only: stale entries inside
+        the kept tail block are masked by length and later overwritten
+        (``quantize_kv`` is a pure function of the value, so a rewritten
+        fp8 / int8 entry and its scale are bit-identical).  Shared or
+        copy-on-write blocks before the boundary keep their references.
+        Returns the truncated table (a new list)."""
+        keep = self.blocks_for(n_tokens)
+        if keep >= len(blocks):
+            return list(blocks)
+        self.free(blocks[keep:])
+        return list(blocks[:keep])
+
     # ---------------------------- device writes ----------------------------
 
     def write_prompt(self, k, v, block_ids) -> None:
@@ -128,6 +150,50 @@ class PagedKVCache:
         else:
             self.k[:, ids] = k.reshape(L, -1, bs, kvh, hd).to(self.k.dtype)
             self.v[:, ids] = v.reshape(L, -1, bs, kvh, hd).to(self.v.dtype)
+
+    def export_blocks(self, block_ids) -> dict:
+        """The contents of ``block_ids`` as host tensors ``{"k", "v"[,
+        "k_scale", "v_scale"]}`` shaped (L, n, bs, ...): quantized pools
+        give their raw codes with the per-token scale rows, so an import
+        is bit-identical."""
+        ids = torch.as_tensor(list(block_ids), dtype=torch.long,
+                              device=self.device)
+        out = {"k": self.k[:, ids].cpu(), "v": self.v[:, ids].cpu()}
+        if self.quantized:
+            out["k_scale"] = self.k_scale[:, ids].cpu()
+            out["v_scale"] = self.v_scale[:, ids].cpu()
+        return out
+
+    def import_blocks(self, block_ids, data: dict) -> None:
+        """Write exported block contents (tensors or numpy arrays) into
+        ``block_ids`` of this pool (the caller allocates).  Quantized
+        pools take their codes in the pool's dtype and bit for bit, never
+        cast (an unclipped cast to e4m3 overflows), with their scale
+        rows."""
+        L, _, bs, kvh, hd = self.k.shape
+        kb = torch.as_tensor(data["k"])
+        if kb.shape[0] != L or tuple(kb.shape[2:]) != (bs, kvh, hd):
+            raise ValueError(
+                f"imported blocks {tuple(kb.shape)} do not fit pool layout "
+                f"(L={L}, bs={bs}, kv={kvh}, hd={hd})")
+        if len(block_ids) != kb.shape[1]:
+            raise ValueError(f"{len(block_ids)} target blocks for "
+                             f"{kb.shape[1]} imported blocks")
+        ids = torch.as_tensor(list(block_ids), dtype=torch.long,
+                              device=self.device)
+        names = ("k", "v", "k_scale", "v_scale") if self.quantized \
+            else ("k", "v")
+        if self.quantized and "k_scale" not in data:
+            raise ValueError("quantized pool import needs scale rows")
+        for name in names:
+            pool = getattr(self, name)
+            src = torch.as_tensor(data[name])
+            if src.dtype != pool.dtype:
+                if self.quantized:
+                    raise ValueError(f"quantized pool import: {name} is "
+                                     f"{src.dtype}, the pool {pool.dtype}")
+                src = src.to(pool.dtype)
+            bits(pool)[:, ids] = bits(src).to(self.device)
 
     def copy_block(self, src: int) -> int | None:
         """Copy-on-write: duplicate one block (and its scale rows) into
@@ -188,6 +254,15 @@ class PagedKVCache:
         self._prefix_lru.append(key)
         return blocks, length, first_token, extras
 
+    def _drop_prefix_entry(self, key: str) -> None:
+        """Release one prefix entry, publishing it through
+        ``on_prefix_evict`` while its blocks are still readable."""
+        self._prefix_lru.remove(key)
+        ids, length, first, extras = self._prefix.pop(key)
+        if self.on_prefix_evict is not None:
+            self.on_prefix_evict(key, ids, length, first, extras)
+        self.free(ids)
+
     def reclaim(self, n_blocks: int, *, keep: tuple = ()) -> bool:
         """Release LRU prefix entries until ``n_blocks`` are allocatable;
         entries named in ``keep`` are spared."""
@@ -195,10 +270,17 @@ class PagedKVCache:
             key = next((k for k in self._prefix_lru if k not in keep), None)
             if key is None:
                 break
-            self._prefix_lru.remove(key)
-            ids = self._prefix.pop(key)[0]
-            self.free(ids)
+            self._drop_prefix_entry(key)
         return self.num_free >= n_blocks
+
+    def drop_prefixes(self) -> int:
+        """Release every prefix entry, each published through
+        ``on_prefix_evict`` first (the cluster's write-back flush to the
+        3FS store); returns the number dropped."""
+        keys = list(self._prefix_lru)
+        for key in keys:
+            self._drop_prefix_entry(key)
+        return len(keys)
 
     @property
     def hit_rate(self) -> float:

@@ -124,6 +124,38 @@ def test_guard_scans_the_platform_slice():
     assert telemetry.now is trace.now is time.perf_counter
 
 
+def test_guard_scans_the_speculative_and_cluster_slice():
+    """The import and source scans reach speculation, the cluster, the
+    3FS prefix store and serve_lib; a fresh interpreter importing them
+    alone loads no jax, repro, msgpack or ml_dtypes."""
+    new = ("repro_torch.serving.speculative", "repro_torch.serving.cluster",
+           "repro_torch.serving.prefix_store", "repro_torch.serve_lib")
+    mods = _port_modules()
+    for m in new + ("repro_torch.serving.engine",
+                    "repro_torch.serving.paged_cache",
+                    "repro_torch.launch.serve"):
+        assert m in mods, m
+    code = ("import importlib, sys\n"
+            f"for m in {new!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro', 'msgpack', 'ml_dtypes'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    pat = re.compile(r"\b(jax|ml_dtypes|msgpack)\b|^\s*(import|from)\s+"
+                     r"repro[.\s]", re.M)
+    for m in new:
+        src = (ROOT / "src" / (m.replace(".", "/") + ".py")).read_text()
+        code_lines = "\n".join(
+            ln for ln in src.splitlines()
+            if ln.lstrip().startswith(("import ", "from ")))
+        assert not pat.search(code_lines), m
+
+
 # the one import of either outside the tests: the bridge's lazy import,
 # on the path that hands bf16 / e4m3 tensors to numpy (CPU tests only)
 _CARD_ABSENT_OK = {("bridge.py", "ml_dtypes")}
