@@ -40,7 +40,13 @@ Phases (any failure exits non-zero and prints no result line):
    64), at b 8 over S 4096 (several key splits an item) and with edge
    sequences (only key 0, full capacity, all padding), at the
    speculative verify window (T 5) and over the self-draft's dense
-   cache of 1 088 positions; every case must
+   cache of 1 088 positions.  The flash forward and backward run
+   non-causal too, at whisper-base's shapes (8 heads of 64, b 8): the
+   encoder over 1 500 frames (not a multiple of the 64-key tile) and
+   cross-attention from 448 decoder rows (forward and backward) and
+   from a decode tick's 1 row (forward), beside SDPA, with a causal
+   mask applied and the last partial key tile dropped as their faults.
+   Every paged case must
    repeat bitwise and write exact zeros for padding rows, its faults
    include "one split dropped" and "combine rescale dropped", and it is
    timed warm (``ms``) and cold (``ms_cold``, each call on its own copy
@@ -148,6 +154,28 @@ Phases (any failure exits non-zero and prints no result line):
    gradients against the plain path and against the plain SSD backward
    in place of the kernel's (with planted SSD-backward faults), then 8
    AdamW steps as in 4, with the SSD kernels' launches per step checked.
+9b. families (``families_phase``): xlstm-125m at full width and depth
+   (12 blocks "mmsmmsmmsmms", d 768), whisper-base at full size (6 + 6
+   layers, d 512, 8 heads of 64) and internvl2-76b at full width (d
+   8192, 64 heads of 128, GQA 8, vocab 128 256) with 2 of its 80
+   layers, random bf16 weights drawn once each from seed 0.  Each serves
+   8 requests (xLSTM: 512-token prompts through
+   ``launch.serve._serve_dense``; Whisper: 1 500 encoder frames and 32
+   tokens through ``serve_lib.BatchServer``; the VLM: 256 patches + 256
+   tokens through ``_serve_dense``), 32 greedy tokens, every serving
+   kernel of its path launched, then trains 3 AdamW steps (xLSTM 4 x
+   512, Whisper 8 x (1 500 frames, 448 tokens), the VLM 2 x (256 + 1
+   792), remat).  Gates against the plain path: every prompt row's
+   logits within E2E_REL_TOL of that row's max |logit| (the first
+   token's row among them), every row of Whisper's encoder output
+   within WHISPER_ENC_TOL of its max, every greedy stream through gate
+   (i), the loss within 1e-3 and every gradient leaf within 3e-2.
+   Planted faults that must fail their gate: Whisper's cross-attention
+   run causal (logits), its encoder run causal (encoder), the mLSTM
+   chunk carry reset between chunks, sLSTM's recurrent term R dropped,
+   the VLM's patches dropped from the prompt (logits).  Prints serving seconds, tokens/s, TTFT and TPOT
+   p50 / p95, step time, tokens/s, MFU, peak memory, launches per step
+   and the profiled step's busy share (``families_summary``).
 10. HaiScale DDP training: gpt2-medium at full width and depth (24
    layers, d 1024) as 8 ranks sharing the card, 2 pods x 4 data, each
    rank 2 x 1024 tokens, gloo collectives staged through pinned host
@@ -717,8 +745,9 @@ def check_rmsnorm(dev, n, d, dtype="bfloat16", stride=None,
 
 def _fwd_pairs(q, k, kw):
     """Scores s (b, h, sq, skv) fp32, the (sq, skv) mask of the pairs the
-    causal / kv_len mask keeps, and the GQA group, as the flash forward
-    kernel sees them (end-aligned q_offset by default)."""
+    causal (unless ``kw["causal"]`` is False) / kv_len mask keeps, and
+    the GQA group, as the flash forward kernel sees them (end-aligned
+    q_offset by default)."""
     import torch
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
@@ -728,7 +757,9 @@ def _fwd_pairs(q, k, kw):
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * d ** -0.5
     qpos = q_offset + torch.arange(sq, device=q.device)
     kpos = torch.arange(skv, device=q.device)
-    valid = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < kv_len)
+    valid = kpos[None, :] < kv_len
+    if kw.get("causal", True):
+        valid = valid & (kpos[None, :] <= qpos[:, None])
     return s, valid, h // kvh
 
 
@@ -772,74 +803,92 @@ def rescale_dropped(q, k, v, kw):
     return (o / l.clamp_min(1e-30)).to(q.dtype)
 
 
-def check_flash(dev, sq, kv_len, b=1, h=24, kvh=8, d=128, sdpa_gqa=False):
-    """The forward kernel against the plain forward at (b, sq = skv, h,
-    kvh, d) in the model's (b, s, h, d) memory, causal, keys past kv_len
-    masked.  Two launches must agree bitwise (o and lse).  Faults: the
-    last key tile dropped, each row's own key masked, the middle key tile
-    skipped, the rescale of O dropped.  The SDPA yardstick runs on K/V
-    repeated to every head (``sdpa_gqa``: on the same tensors with
-    ``enable_gqa``)."""
+def check_flash(dev, sq, kv_len=None, b=1, h=24, kvh=8, d=128,
+                sdpa_gqa=False, skv=None, causal=True):
+    """The forward kernel against the plain forward at (b, sq, skv
+    (default sq), h, kvh, d) in the model's (b, s, h, d) memory, keys
+    past kv_len (default skv) masked, causal with end-aligned queries or
+    (``causal=False``: Whisper's encoder, sq = skv, and its
+    cross-attention, sq != skv) not.  Two launches must agree bitwise (o
+    and lse).  Faults: the last key tile below kv_len dropped (a partial
+    one where kv_len is not a multiple of 64), each row's own key masked
+    (causal) or a causal mask applied (q_offset 0, as ``attention_core``
+    passes it; non-causal), the middle key tile skipped, the rescale of
+    O dropped.  The SDPA yardstick runs on K/V repeated to every head
+    (``sdpa_gqa``: on the same tensors with ``enable_gqa``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_fwd
+    skv = sq if skv is None else skv
+    kv_len = skv if kv_len is None else kv_len
     g = torch.Generator(device=dev).manual_seed(2)
     bf = torch.bfloat16
     # the model's (b, s, h, d) layout, seen as (b, h, s, d) like the model
     q = torch.randn(b, sq, h, d, device=dev, generator=g).to(bf)
-    k = torch.randn(b, sq, kvh, d, device=dev, generator=g).to(bf)
-    v = torch.randn(b, sq, kvh, d, device=dev, generator=g).to(bf)
+    k = torch.randn(b, skv, kvh, d, device=dev, generator=g).to(bf)
+    v = torch.randn(b, skv, kvh, d, device=dev, generator=g).to(bf)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    got = flash_attention(qt, kt, vt, kv_len=kv_len)
-    o1, lse1 = flash_attention_fwd(qt, kt, vt, kv_len=kv_len, save_lse=True)
-    o2, lse2 = flash_attention_fwd(qt, kt, vt, kv_len=kv_len, save_lse=True)
+    kw = dict(kv_len=kv_len, causal=causal)
+    got = flash_attention(qt, kt, vt, **kw)
+    o1, lse1 = flash_attention_fwd(qt, kt, vt, save_lse=True, **kw)
+    o2, lse2 = flash_attention_fwd(qt, kt, vt, save_lse=True, **kw)
     bitwise = bool(torch.equal(got, o1) and torch.equal(o1, o2)
                    and torch.equal(lse1, lse2))
     del o1, o2, lse1, lse2
-    ref = attention_ref(qt, kt, vt, kv_len=kv_len)
+    ref = attention_ref(qt, kt, vt, **kw)
     err, used, ok = compare("flash_attention", got, ref)
     del ref
-    kw = dict(kv_len=kv_len)
-    ctl = controls("flash_attention", got, {
-        "last key tile dropped": attention_ref(
-            qt, kt, vt, kv_len=kv_len - KEY_TILE),
-        "own key masked": attention_ref(qt, kt, vt, q_offset=-1,
-                                        kv_len=kv_len),
-        "middle key tile skipped": middle_tile_skipped(qt, kt, vt, kw),
-        "rescale dropped": rescale_dropped(qt, kt, vt, kw)})
+    last = (min(kv_len, skv) - 1) // KEY_TILE * KEY_TILE
+    faults = {
+        "last key tile dropped" if kv_len % KEY_TILE == 0 else
+        "last partial key tile dropped": attention_ref(
+            qt, kt, vt, causal=causal, kv_len=last)}
+    if causal:
+        faults["own key masked"] = attention_ref(qt, kt, vt, q_offset=-1,
+                                                 kv_len=kv_len)
+    else:
+        faults["causal mask applied"] = attention_ref(
+            qt, kt, vt, q_offset=0, kv_len=kv_len)
+    faults["middle key tile skipped"] = middle_tile_skipped(qt, kt, vt, kw)
+    faults["rescale dropped"] = rescale_dropped(qt, kt, vt, kw)
+    ctl = controls("flash_attention", got, faults)
+    del faults
     if sdpa_gqa:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
     else:
         kr = kt.repeat_interleave(h // kvh, dim=1).contiguous()
         vr = vt.repeat_interleave(h // kvh, dim=1).contiguous()
         qc = qt.contiguous()
         mask = None
-        if kv_len != sq:
-            pos = torch.arange(sq, device=dev)
-            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] < kv_len)
+        if kv_len != skv:
+            qpos = skv - sq + torch.arange(sq, device=dev)
+            kpos = torch.arange(skv, device=dev)
+            mask = kpos[None, :] < kv_len
+            if causal:
+                mask = mask & (kpos[None, :] <= qpos[:, None])
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qc, kr, vr, attn_mask=mask, is_causal=mask is None)
-    # work this input needs: causal pairs among the first kv_len keys
-    pairs = b * sum(min(i + 1, kv_len) for i in range(sq))
+            qc, kr, vr, attn_mask=mask, is_causal=causal and mask is None)
+    # work this input needs: the pairs among the first kv_len keys
+    pairs = b * causal_pairs(sq, skv, skv - sq, kv_len, causal)
     # q read and o written; K and V only below kv_len (never fetched past)
-    nbytes = b * (2 * sq * h * d + 2 * min(sq, kv_len) * kvh * d) * 2
+    nbytes = b * (2 * sq * h * d + 2 * min(skv, kv_len) * kvh * d) * 2
     b_ms, b_by = bound(nbytes, 4 * d * h * pairs, "bf16_tensor")
     op_host, wrapper_host = host_ms_pair(
-        lambda: flash_attention(qt, kt, vt, kv_len=kv_len),
-        lambda: flash_attention_fwd(qt, kt, vt, kv_len=kv_len))
-    return {"case": f"b={b},sq=skv={sq},kv_len={kv_len},h={h},kvh={kvh},"
-                    f"d={d}",
+        lambda: flash_attention(qt, kt, vt, **kw),
+        lambda: flash_attention_fwd(qt, kt, vt, **kw))
+    case = (f"b={b},sq=skv={sq},kv_len={kv_len}," if causal else
+            f"b={b},sq={sq},skv={skv},")
+    return {"case": f"{case}h={h},kvh={kvh},d={d}" + (
+                "" if causal else ",non-causal"),
             "max_abs_err": err, "tol_used": used, "ok": ok and bitwise,
             "bitwise_repeat": bitwise, "controls": ctl,
-            "ms": time_ms(lambda: flash_attention(qt, kt, vt,
-                                                  kv_len=kv_len)),
+            "ms": time_ms(lambda: flash_attention(qt, kt, vt, **kw)),
             "host_ms": op_host, "host_ms_wrapper": wrapper_host,
-            "plain_ms": time_ms(lambda: attention_ref(qt, kt, vt,
-                                                      kv_len=kv_len), 5),
+            "plain_ms": time_ms(lambda: attention_ref(qt, kt, vt, **kw), 5),
             "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -1234,7 +1283,7 @@ def key_tile_skipped(q, k, v, do, lse, delta, rq, kw):
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kt) * scale
     qpos = kw["q_offset"] + torch.arange(sq, device=q.device)
     kpos = torch.arange(lo, hi, device=q.device)
-    valid = kpos[None, :] <= qpos[:, None]
+    valid = (kpos[None, :] <= qpos[:, None]) | (not kw["causal"])
     p = torch.where(valid, torch.exp(s - lse[..., None]),
                     torch.zeros_like(s))
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vt)
@@ -1243,13 +1292,16 @@ def key_tile_skipped(q, k, v, do, lse, delta, rq, kw):
 
 
 def check_flash_bwd(dev, *, b, sq, skv, h=24, kvh=8, d=128, q_offset=None,
-                    kv_len=None):
+                    kv_len=None, causal=True):
     """dK/dV and dQ kernels against the plain backward on the same q, k,
     v, dO, lse and delta (lse and delta from the plain forward), in the
-    model's (b, s, h, d) memory layout.  Faults: delta dropped, the last
-    key tile dropped, (dK/dV) the GQA sum over one head only and one ring
-    stage skipped (one query head's middle 64-row tile: its dO and delta
-    zeroed), and (dQ) one middle key tile skipped.  Two launches on the
+    model's (b, s, h, d) memory layout, causal or not (``causal=False``:
+    Whisper's encoder and cross-attention).  Faults: delta dropped, the
+    last (partial) key tile dropped, (dK/dV) the GQA sum over one head
+    only and one ring stage skipped (one query head's middle 64-row tile:
+    its dO and delta zeroed), (dQ) one middle key tile skipped, and, on a
+    non-causal case, a causal mask applied (q_offset 0, as
+    ``attention_core`` passes it).  Two launches on the
     same inputs must agree bitwise, and keys at or past kv_len must get
     dK = dV = 0 exactly.  Then the training path's hand-off: the forward
     kernel's o and lse against the plain forward's (fault: the last key
@@ -1270,7 +1322,7 @@ def check_flash_bwd(dev, *, b, sq, skv, h=24, kvh=8, d=128, q_offset=None,
         return torch.randn(b, s, heads, d, device=dev,
                            generator=g).to(bf).transpose(1, 2)
     q, k, v, do = t(sq, h), t(skv, kvh), t(skv, kvh), t(sq, h)
-    kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
     o, lse = attention_fwd_ref(q, k, v, **kw)
     delta = (o.float() * do.float()).sum(-1).contiguous()
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
@@ -1287,7 +1339,7 @@ def check_flash_bwd(dev, *, b, sq, skv, h=24, kvh=8, d=128, q_offset=None,
     o_k, lse_k = flash_attention_fwd(q, k, v, save_lse=True, **kw)
     residual = {"lse": checked("flash_attention_lse", lse_k, lse, {
         "last key tile dropped": attention_fwd_ref(
-            q, k, v, causal=True, q_offset=q_offset, kv_len=last)[1]}),
+            q, k, v, causal=causal, q_offset=q_offset, kv_len=last)[1]}),
         "o": checked("flash_attention", o_k, o)}
     delta_k = (o_k.float() * do.float()).sum(-1).contiguous()
     chain = (flash_attention_bwd_dkv(q, k, v, do, lse_k, delta_k, **kw)
@@ -1296,12 +1348,21 @@ def check_flash_bwd(dev, *, b, sq, skv, h=24, kvh=8, d=128, q_offset=None,
     # planted faults
     f_delta = attention_bwd_ref(q, k, v, do, lse, torch.zeros_like(delta),
                                 **kw)
-    f_tile = attention_bwd_ref(q, k, v, do, lse, delta, causal=True,
+    f_tile = attention_bwd_ref(q, k, v, do, lse, delta, causal=causal,
                                q_offset=q_offset, kv_len=last)
     dkv_faults = {"delta dropped": f_delta[1:],
                   "last key tile dropped": f_tile[1:],
                   "one ring stage skipped": stage_skipped(
                       q, k, v, do, lse, delta, kw)}
+    dq_faults = {"delta dropped": f_delta[:1],
+                 "last key tile dropped": f_tile[:1],
+                 "one key tile skipped": key_tile_skipped(
+                     q, k, v, do, lse, delta, rq, kw)}
+    if not causal:
+        f_causal = attention_bwd_ref(q, k, v, do, lse, delta, causal=True,
+                                     q_offset=0, kv_len=kv_len)
+        dkv_faults["causal mask applied"] = f_causal[1:]
+        dq_faults["causal mask applied"] = f_causal[:1]
     if h > kvh:
         one = torch.zeros(h, device=dev, dtype=bf)
         one[::h // kvh] = 1
@@ -1325,14 +1386,19 @@ def check_flash_bwd(dev, *, b, sq, skv, h=24, kvh=8, d=128, q_offset=None,
     # library yardstick: SDPA's backward for q, k, v (one call for all
     # three), on the same tensors with the same mask
     ql, kl, vl = (x.detach().clone().requires_grad_() for x in (q, k, v))
-    if sq == skv and kv_len == skv and q_offset == 0:
+    if not causal and kv_len == skv:
+        def lib_fwd():
+            return F.scaled_dot_product_attention(ql, kl, vl,
+                                                  enable_gqa=True)
+    elif sq == skv and kv_len == skv and q_offset == 0:
         def lib_fwd():
             return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
                                                   enable_gqa=True)
     else:
         qpos = q_offset + torch.arange(sq, device=dev)
         kpos = torch.arange(skv, device=dev)
-        mask = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < kv_len)
+        mask = ((kpos[None, :] <= qpos[:, None]) | (not causal)) & \
+            (kpos[None, :] < kv_len)
 
         def lib_fwd():
             return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
@@ -1340,22 +1406,18 @@ def check_flash_bwd(dev, *, b, sq, skv, h=24, kvh=8, d=128, q_offset=None,
     lib_ms = backward_ms(lib_fwd, (ql, kl, vl), do)
     plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, do, lse, delta,
                                                  **kw), 3)
-    pairs = b * h * causal_pairs(sq, skv, q_offset, kv_len)
+    pairs = b * h * causal_pairs(sq, skv, q_offset, kv_len, causal)
     qb, kb = b * h * sq * d * 2, b * kvh * min(skv, kv_len) * d * 2
     rows_b = b * h * sq * 4 * 2                      # lse and delta
     case = (f"b={b},sq={sq},skv={skv},q_offset={q_offset},kv_len={kv_len},"
-            f"h={h},kvh={kvh},d={d}")
+            f"h={h},kvh={kvh},d={d}" + ("" if causal else ",non-causal"))
     out = {}
     for name, pair, refs, faults, fn, nbytes, ops in (
             ("flash_attention_bwd_dkv", (dk, dv), (rk, rv), dkv_faults,
              lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw),
              2 * qb + 2 * kb + rows_b + 2 * b * kvh * skv * d * 2,
              8 * d * pairs),
-            ("flash_attention_bwd_dq", (dq,), (rq,),
-             {"delta dropped": f_delta[:1],
-              "last key tile dropped": f_tile[:1],
-              "one key tile skipped": key_tile_skipped(
-                  q, k, v, do, lse, delta, rq, kw)},
+            ("flash_attention_bwd_dq", (dq,), (rq,), dq_faults,
              lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
              3 * qb + 2 * kb + rows_b, 6 * d * pairs)):
         if len(pair) == 1:
@@ -1396,7 +1458,9 @@ def backward_kernel_phase(dev):
     flash with 32 heads of 64, no grouping), then the flash kernels'
     edges: lengths that are not multiples of their 64 / 128-row tiles
     (129, 200, 1000), GQA groups of 1, 3 and 4, head dims 64 and 128,
-    q_offset > 0 and kv_len < skv with whole key tiles past kv_len."""
+    q_offset > 0 and kv_len < skv with whole key tiles past kv_len; last,
+    whisper-base's training shapes, non-causal: the encoder (1 500 x
+    1 500) and cross-attention (448 x 1 500), d 64, b 8."""
     cases = {n: [] for n in ("rmsnorm_bwd", "flash_attention_bwd_dkv",
                              "flash_attention_bwd_dq")}
     for n, d in ((4096, 3072), (8, 3072), (4096, 4096), (4096, 2048)):
@@ -1411,7 +1475,13 @@ def backward_kernel_phase(dev):
                dict(b=2, sq=200, skv=200, h=8, kvh=2, d=128),
                dict(b=2, sq=1000, skv=1000, h=16, kvh=4, d=64),
                dict(b=2, sq=200, skv=1000, h=8, kvh=8, d=128, q_offset=700,
-                    kv_len=777)):
+                    kv_len=777),
+               # whisper-base's training step, non-causal: the encoder,
+               # and cross-attention from its decoder rows
+               dict(b=WHISPER_TRAIN[0], sq=WHISPER_FRAMES,
+                    skv=WHISPER_FRAMES, h=8, kvh=8, d=64, causal=False),
+               dict(b=WHISPER_TRAIN[0], sq=WHISPER_TRAIN[1],
+                    skv=WHISPER_FRAMES, h=8, kvh=8, d=64, causal=False)):
         for name, row in check_flash_bwd(dev, **kw).items():
             cases[name].append(row)
     return cases
@@ -1422,8 +1492,10 @@ def kernel_phase(dev):
     zamba2-1.2b's (the gated rmsnorm over d_inner 4096 and the pre-norms
     over d 2048; the shared block's attention, 32 heads of 64 without
     grouping: fresh prefill, decode tick, prefill chunk, and a 256-token
-    continuation chunk against the dense-cache view); last, the flash
-    forward at both training steps' shapes (b 2 x 2048)."""
+    continuation chunk against the dense-cache view); the flash
+    forward at both training steps' shapes (b 2 x 2048); last, its
+    non-causal path at whisper-base's shapes (b 8: the encoder over 1 500
+    frames, cross-attention from 448 rows and from 1)."""
     cases = {"rmsnorm": [], "flash_attention": [],
              "paged_chunk_attention": []}
     # the decode tick, the training step (with rstd), then fp32, rows
@@ -1471,6 +1543,13 @@ def kernel_phase(dev):
                           dense_view=True, **hd64))
     pc.append(check_paged(dev, kv_dtype="bfloat16", T=1, bs=16, cap=4096,
                           edges=True, **hd64))
+    # whisper-base's non-causal attention (8 heads of 64): the encoder
+    # over WHISPER_FRAMES frames, cross-attention from the training
+    # step's decoder rows and from a decode tick's one row
+    for sq in (WHISPER_FRAMES, WHISPER_TRAIN[1], 1):
+        cases["flash_attention"].append(check_flash(
+            dev, sq, b=FAM_REQUESTS, skv=WHISPER_FRAMES, causal=False,
+            h=8, kvh=8, d=64))
     return cases
 
 
@@ -2433,7 +2512,7 @@ def teacher_forced(model, params, prompts, forced, dev, n_ticks=4, bs=16,
     return torch.stack(out)
 
 
-def profiled(run, top=12):
+def profiled(run, top=12, against_key_averages=False):
     """``run()`` once more under torch.profiler: the device's busy share
     of the traced wall time, the device operations by time, and the
     device time of the port's attention kernels and of its rmsnorm
@@ -2441,7 +2520,14 @@ def profiled(run, top=12):
     early as a programmatic dependent, also counts the time it waits).
     Only the device's activity is traced: every number here reads
     device rows, and tracing the host's operations too cost 76-103 s of
-    host time a serving phase and stretched the wall (PERF.md §6)."""
+    host time a serving phase and stretched the wall (PERF.md §6).  The
+    device rows are summed by name straight from the profiler's raw
+    Kineto events (``processing_s``: the seconds that takes), not
+    through ``key_averages``, whose parse of every event into a
+    ``FunctionEvent`` cost tens of seconds a phase.
+    ``against_key_averages``: the busy time summed as before too (the
+    self device time of ``key_averages``' device rows), with the seconds
+    that takes, to show that the two sums agree."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2452,36 +2538,48 @@ def profiled(run, top=12):
         run()
         torch.cuda.synchronize()
         wall_ms = (now() - t0) * 1e3
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
+    t1 = now()
     # device-side events only (kernels, copies, memsets): one stream, so
     # their sum is the time the card was busy
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
-                  key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            rec = by_name.setdefault(e.name(), [0, 0])
+            rec[0] += 1
+            rec[1] += e.duration_ns()
+    rows = sorted(({"op": k[:80], "calls": c, "device_ms": ns / 1e6}
+                   for k, (c, ns) in by_name.items()),
+                  key=lambda r: r["device_ms"], reverse=True)
+    busy_ms = sum(r["device_ms"] for r in rows)
+    processing_s = now() - t1
+    check = None
+    if against_key_averages:
+        t2 = now()
+        ka = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+        ka_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                    for e in ka) / 1e3
+        check = {"key_averages_busy_ms": ka_ms,
+                 "raw_events_busy_ms": busy_ms,
+                 "rel_diff": abs(ka_ms - busy_ms) / max(ka_ms, 1e-9),
+                 "key_averages_calls": sum(e.count for e in ka),
+                 "raw_events_calls": sum(c for c, _ in by_name.values()),
+                 "key_averages_s": now() - t2}
 
-    def op(e):
-        return {"op": e.key[:80], "calls": e.count,
-                "device_ms": dev_us(e) / 1e3}
+    def part(match):
+        ops = [r for r in rows if match(r["op"])]
+        ms = sum(r["device_ms"] for r in ops)
+        return {"device_ms": ms, "share_of_busy": ms / busy_ms if busy_ms
+                else 0.0, "ops": ops}
     # the port's attention kernels (flash forward and backward, the paged
     # split and combine)
-    attn = [e for e in rows if "flash_" in e.key or "paged_" in e.key]
-    attn_ms = sum(dev_us(e) for e in attn) / 1e3
-    norm = [e for e in rows if "rmsnorm_bwd_kernel" in e.key
-            or "rmsnorm_dw_combine" in e.key]
-    norm_ms = sum(dev_us(e) for e in norm) / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
-            "top": [op(e) for e in rows[:top]],
-            "attention": {"device_ms": attn_ms,
-                          "share_of_busy": attn_ms / busy_ms,
-                          "ops": [op(e) for e in attn]},
-            "rmsnorm_bwd": {"device_ms": norm_ms,
-                            "share_of_busy": norm_ms / busy_ms,
-                            "ops": [op(e) for e in norm]}}
+            "processing_s": processing_s, "top": rows[:top],
+            "against_key_averages": check,
+            "attention": part(lambda k: "flash_" in k or "paged_" in k),
+            "rmsnorm_bwd": part(lambda k: "rmsnorm_bwd_kernel" in k
+                                or "rmsnorm_dw_combine" in k)}
 
 
 def e2e_phase(dev):
@@ -2667,27 +2765,32 @@ def spec_run(model, params, prompts, arrivals, dev, *, gen=32,
     return rec, toks
 
 
-def stream_gate(model, params, prompts, plain, streams, dev, tol, **labels):
+def stream_gate(model, params, prompts, plain, streams, dev, tol,
+                forced=None, **labels):
     """Gate (i): a greedy stream against the plain engine's stream of the
     same prompts.  Equal to the end passes.  Else, at the first
     differing position, the plain path (the stream teacher-forced
-    through ``teacher_forced``) must have a near-tie somewhere at or
-    before it (top-two logit gap within ``tol`` of max |logit|), and from
-    there on every token of the stream, teacher-forced along the stream
-    itself, must lie within ``tol`` of max |logit| of that position's
-    largest logit."""
+    through ``teacher_forced``, or ``forced(requests, streams, n_ticks)``
+    where given) must have a near-tie somewhere at or before it (top-two
+    logit gap within ``tol`` of max |logit|), and from there on every
+    token of the stream, teacher-forced along the stream itself, must
+    lie within ``tol`` of max |logit| of that position's largest
+    logit."""
     import numpy as np
     import torch
     diff = [i for i, (p, s) in enumerate(zip(plain, streams))
             if not np.array_equal(p, s)]
     rows = []
     if diff:
-        sub = [prompts[i] for i in diff]
         n = len(plain[diff[0]])
-        lp = teacher_forced(model, params, sub, [plain[i] for i in diff],
-                            dev, n_ticks=n - 1)
-        ls = teacher_forced(model, params, sub, [streams[i] for i in diff],
-                            dev, n_ticks=n - 1)
+        if forced is None:
+            sub = [prompts[i] for i in diff]
+
+            def forced(_, toks, ticks):
+                return teacher_forced(model, params, sub, toks, dev,
+                                      n_ticks=ticks)
+        lp = forced(diff, [plain[i] for i in diff], n - 1)
+        ls = forced(diff, [streams[i] for i in diff], n - 1)
         for j, i in enumerate(diff):
             first = int(np.flatnonzero(np.asarray(plain[i])
                                        != np.asarray(streams[i]))[0])
@@ -3084,13 +3187,17 @@ def fault_row(fault, gating, r):
 
 
 def train_steps(model, params, cfg, dev, kernels, n_flop_params, label,
-                attn_layers=None, extra_flops=0):
-    """AdamW (warmup_cosine(3e-4, 2, TRAIN_STEPS), fp32 masters and
-    moments) for TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ synthetic
-    tokens through ``parallel.plan.make_train_step``, the launch counters
-    zeroed before and read after, then one step under the profiler.
-    MFU counts 6 * n_flop_params * tokens + 12 * L * h * d * causal
-    pairs (L: ``attn_layers``, default every layer) + ``extra_flops``.
+                attn_layers=None, extra_flops=0, steps=TRAIN_STEPS,
+                batch_fn=None, tokens=None, flops=None,
+                against_key_averages=False):
+    """AdamW (warmup_cosine(3e-4, 2, steps), fp32 masters and moments)
+    for ``steps`` steps of ``batch_fn(i)`` (default TRAIN_BATCH x
+    TRAIN_SEQ synthetic tokens, ``tokens`` a step) through
+    ``parallel.plan.make_train_step``, the launch counters zeroed before
+    and read after, then one step under the profiler.  MFU counts
+    ``flops`` a step, by default 6 * n_flop_params * tokens + 12 * L * h
+    * d * causal pairs (L: ``attn_layers``, default every layer) +
+    ``extra_flops``.  ``against_key_averages`` goes to ``profiled``.
     Returns (results, failures); frees the state."""
     import statistics
 
@@ -3101,7 +3208,10 @@ def train_steps(model, params, cfg, dev, kernels, n_flop_params, label,
         make_train_step
     from repro_torch.telemetry import now
     B, S = TRAIN_BATCH, TRAIN_SEQ
-    opt = AdamW(lr=warmup_cosine(3e-4, 2, TRAIN_STEPS))
+    if batch_fn is None:
+        def batch_fn(i):
+            return train_batch(cfg, dev, i)
+    opt = AdamW(lr=warmup_cosine(3e-4, 2, steps))
     plan = ParallelPlan(mode="gspmd")
     state = init_state(plan, opt, params)
     del params
@@ -3110,8 +3220,8 @@ def train_steps(model, params, cfg, dev, kernels, n_flop_params, label,
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     losses, times = [], []
-    for i in range(TRAIN_STEPS):
-        b = train_batch(cfg, dev, i)
+    for i in range(steps):
+        b = batch_fn(i)
         torch.cuda.synchronize()
         t0 = now()
         state, metrics = step(state, b)
@@ -3122,21 +3232,21 @@ def train_steps(model, params, cfg, dev, kernels, n_flop_params, label,
     torch.cuda.synchronize()
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    tokens = B * S
+    tokens = B * S if tokens is None else tokens
     med = statistics.median(times)
-    pairs = B * causal_pairs(S, S, 0, S)
-    L = cfg.n_layers if attn_layers is None else attn_layers
-    flops = 6 * n_flop_params * tokens + \
-        12 * L * cfg.n_heads * cfg.head_dim * pairs + extra_flops
-    prof = profiled(lambda: float(step(state, train_batch(
-        cfg, dev, TRAIN_STEPS))[1]["loss"]))
-    out = {"batch": B, "seq": S, "steps": TRAIN_STEPS, "losses": losses,
+    if flops is None:
+        pairs = B * causal_pairs(S, S, 0, S)
+        L = cfg.n_layers if attn_layers is None else attn_layers
+        flops = 6 * n_flop_params * tokens + \
+            12 * L * cfg.n_heads * cfg.head_dim * pairs + extra_flops
+    prof = profiled(lambda: float(step(state, batch_fn(steps))[1]["loss"]),
+                    against_key_averages=against_key_averages)
+    out = {"batch": B, "seq": S, "steps": steps, "losses": losses,
            "step_s": times, "median_step_s": med,
            "tokens_per_s": tokens / med, "model_flops_per_step": flops,
            "mfu_vs_bf16_dense_peak": flops / med / PEAK["bf16_tensor"],
            "peak_mem_gb": peak / 1e9, "launches": counts,
-           "launches_per_step": {k: v / TRAIN_STEPS
-                                 for k, v in counts.items()},
+           "launches_per_step": {k: v / steps for k, v in counts.items()},
            "profile": prof}
     del state
     torch.cuda.empty_cache()
@@ -3192,7 +3302,8 @@ def train_phase(dev):
 
     # 2. training
     out, failures = train_steps(model, params, cfg, dev, TRAIN_KERNELS,
-                                n_params, "train")
+                                n_params, "train",
+                                against_key_averages=True)
     out = {"arch": ARCH, "params": n_params, **out, "vs_plain": vs_plain}
     if not vs_plain["ok"]:
         failures.append(f"training kernel vs plain: loss_rel "
@@ -4348,6 +4459,430 @@ def hybrid_train_phase(dev):
                  f"SSD backward's op gate"
                  for f in checks["vs_plain_ssd_backward"]["controls"]
                  if not f["caught"]]
+    return out, failures
+
+
+# ------------------ the xLSTM, Whisper and VLM families ---------------------
+
+XLSTM_ARCH, WHISPER_ARCH, VLM_ARCH = "xlstm-125m", "whisper-base", \
+    "internvl2-76b"
+# internvl2-76b at full width with its 80 layers cut to VLM_LAYERS: 3.81 B
+# parameters, whose weights, fp32 masters and moments fit one card (the
+# 80 layers hold 70.6 B; the vision frontend is a stub)
+VLM_LAYERS = 2
+FAM_REQUESTS, FAM_GEN, FAM_STEPS = 8, 32, 3
+# prompt tokens a request (the VLM's after its 256 patches), and the
+# training batch (b, tokens a row; the VLM's rows are 256 patches + 1 792
+# tokens = 2 048 positions)
+FAM_PROMPT = {XLSTM_ARCH: 512, WHISPER_ARCH: 32, VLM_ARCH: 256}
+FAM_TRAIN = {XLSTM_ARCH: (4, 512), WHISPER_ARCH: (8, 448),
+             VLM_ARCH: (2, 2048 - 256)}
+# whisper: 30 s of audio after its convolutions is 1 500 encoder frames,
+# and 448 tokens its decoder's context
+WHISPER_FRAMES = 1500
+# Whisper's encoder output (a bf16 layernorm output after 6 layers) held
+# row by row against the plain path's: each row's max |difference| over
+# its max |x|.  On an H100 the sound path's worst of 12 000 rows read
+# 2.19e-2 and "encoder run causal" 0.564 (0.02-scale frames; 1.89e-2 and
+# 0.171 at unit scale): the limit sits ~2.7x above the one and ~9x below
+# the other
+WHISPER_ENC_TOL = 6e-2
+WHISPER_TRAIN = FAM_TRAIN[WHISPER_ARCH]
+# (serving, training) kernels of each family's path: xLSTM's only
+# kernel is the final rmsnorm (its blocks' norms are inline, as in JAX);
+# whisper's norms are layernorm (plain, as for gpt2)
+FAM_KERNELS = {
+    XLSTM_ARCH: (("rmsnorm",), ("rmsnorm", "rmsnorm_bwd")),
+    WHISPER_ARCH: (("flash_attention", "paged_chunk_attention"),
+                   ("flash_attention", "flash_attention_bwd_dkv",
+                    "flash_attention_bwd_dq")),
+    VLM_ARCH: (DENSE_SERVING_KERNELS, TRAIN_KERNELS)}
+
+
+def family_config(arch):
+    import dataclasses as dc
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch(arch)
+    return dc.replace(cfg, n_layers=VLM_LAYERS) if arch == VLM_ARCH else cfg
+
+
+def family_batch(cfg, b, s, step, train):
+    """``data.synthetic.batch_for_model``'s batch of ``b`` rows of ``s``
+    tokens (with labels when ``train``) at ``step`` from SEED: the VLM's
+    256 patch rows ahead of them, Whisper's frames WHISPER_FRAMES long
+    (30 s of audio after its convolutions, not the token length)."""
+    from repro_torch.data.synthetic import batch_for_model
+    kind = "train" if train else "prefill"
+    if cfg.family == "vlm":
+        return batch_for_model(cfg, kind, step, b,
+                               cfg.n_frontend_tokens + s, SEED)
+    out = batch_for_model(cfg, kind, step, b, s, SEED)
+    if cfg.family == "audio":
+        out["frames"] = batch_for_model(cfg, kind, step, b, WHISPER_FRAMES,
+                                        SEED)["frames"]
+    return out
+
+
+def on_device(batch, dev):
+    import torch
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def family_serve(model, params, batch, dev):
+    """One lockstep serving run of ``batch`` (FAM_GEN greedy tokens):
+    Whisper through ``serve_lib.BatchServer``, the others through
+    ``launch.serve._serve_dense``; the launch counters zeroed before and
+    read after.  Returns (tokens (b, gen), record)."""
+    import types
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.serve_lib import BatchServer
+    from repro_torch.telemetry import (TraceWriter, install_writer, now,
+                                       uninstall_writer)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = now()
+    if model.cfg.family == "audio":
+        srv = BatchServer(model, params, None, device=dev)
+        toks, _ = srv.serve(batch, gen=FAM_GEN)
+        secs = now() - t0
+        st = srv.stats
+        lat = {k: st[k] for k in ("ttft_p50", "ttft_p95", "tpot_p50",
+                                  "tpot_p95")}
+        via = "serve_lib.BatchServer"
+    else:
+        writer = TraceWriter()
+        install_writer(writer)
+        try:
+            toks = serve._serve_dense(model, params, batch,
+                                      types.SimpleNamespace(
+                                          gen=FAM_GEN, metrics=False), dev)
+        finally:
+            uninstall_writer()
+        secs = now() - t0
+        spans = {n: [e["dur"] / 1e6 for e in writer.events
+                     if e["name"] == n]
+                 for n in ("serve.dense_prefill", "serve.dense_decode")}
+        tpot = np.asarray(spans["serve.dense_decode"])
+        ttft = spans["serve.dense_prefill"][0]
+        lat = {"ttft_p50": ttft, "ttft_p95": ttft,
+               "tpot_p50": float(np.percentile(tpot, 50)),
+               "tpot_p95": float(np.percentile(tpot, 95))}
+        via = "launch.serve._serve_dense"
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    b = toks.shape[0]
+    rec = {"via": via, "requests": b, "new_tokens_each": FAM_GEN,
+           "seconds": secs, "tokens_per_s": b * FAM_GEN / secs,
+           **{f"{k}_s": v for k, v in lat.items()}, "launches": counts}
+    return np.asarray(toks), rec
+
+
+def dense_forced(model, params, batch, forced, dev, n_ticks):
+    """First-token logits of a fresh whole-prompt chunk and ``n_ticks``
+    decode ticks fed ``forced`` tokens through the dense chunk API; fp32
+    logits (1 + n_ticks, b, V)."""
+    import torch
+    cfg = model.cfg
+    tb = on_device(batch, dev)
+    tok, pos, emb = model.prompt_inputs(params, tb)
+    b, s = pos.shape
+    state = model.init_seq_state(params, s + n_ticks + 1, batch=tb,
+                                 batch_size=b, dtype=cfg.compute_dtype,
+                                 device=dev)
+    state, logits = model.forward(params, state, tok, pos, embeds=emb,
+                                  fresh=True)
+    out = [logits.float()]
+    for t in range(n_ticks):
+        tk = torch.as_tensor([[int(f[t])] for f in forced],
+                             dtype=torch.int32, device=dev)
+        p = torch.full((b, 1), s + t, dtype=torch.int32, device=dev)
+        state, logits = model.forward(params, state, tk, p)
+        out.append(logits.float())
+    return torch.stack(out)
+
+
+def prompt_logits(model, params, batch, dev):
+    """Logits (b, s, V) of every prompt token's row (the VLM's patch rows
+    left out) from one fresh whole-prompt chunk."""
+    tb = on_device(batch, dev)
+    tok, pos, emb = model.prompt_inputs(params, tb)
+    b, t = pos.shape
+    state = model.init_seq_state(params, t, batch=tb, batch_size=b,
+                                 dtype=model.cfg.compute_dtype, device=dev)
+    _, logits = model.forward(params, state, tok, pos, embeds=emb,
+                              fresh=True, all_logits=True)
+    return logits[:, -tb["tokens"].shape[1]:]
+
+
+def prompt_gate(got, ref, tol=E2E_REL_TOL):
+    """got / ref (b, rows, n).  Each row's max |got - ref| over max |ref|
+    of that row: the worst row (the first token's, the last prompt row,
+    among them) must lie within ``tol``, every value finite.  Each
+    request's max |got - ref| over its max |ref| (as ``logit_rows``
+    holds a logits set) is reported beside it."""
+    import torch
+    diff = [(g.float() - r.float()).abs().amax(-1) for g, r in zip(got, ref)]
+    scale = [r.float().abs().amax(-1) for r in ref]
+    rel = torch.stack([d / m for d, m in zip(diff, scale)])      # (b, s)
+    req = torch.stack([d.max() / m.max() for d, m in zip(diff, scale)])
+    finite = bool(all(torch.isfinite(g).all() for g in got))
+    return {"first_token_rel": float(rel[:, -1].max()),
+            "worst_row_rel": float(rel.max()),
+            "worst_request_rel": float(req.max()),
+            "rows": rel.numel(), "tol": tol, "finite": finite,
+            "ok": float(rel.max()) <= tol and finite}
+
+
+def mlstm_carry_reset():
+    """The mLSTM chunk scan with its carried state reset between chunks
+    (each chunk after a call's first starts from a fresh cell)."""
+    import torch
+    from repro_torch.models import xlstm
+    good = xlstm.mlstm_chunked
+
+    def faulty(q, k, v, ig, lf, chunk, state=None):
+        c = min(chunk, q.shape[1])
+        outs = []
+        for lo in range(0, q.shape[1], c):
+            o, state = good(*(t[:, lo:lo + c] for t in (q, k, v, ig, lf)),
+                            chunk, state=state if lo == 0 else None)
+            outs.append(o)
+        return torch.cat(outs, 1), state
+    return [(xlstm, "mlstm_chunked", faulty)]
+
+
+def slstm_r_dropped():
+    """sLSTM's recurrent term R h_{t-1} dropped (R = 0)."""
+    import torch
+    from repro_torch.models import xlstm
+    good = xlstm.slstm_scan
+    return [(xlstm, "slstm_scan",
+             lambda zx, ix, fx, ox, R, state=None: good(
+                 zx, ix, fx, ox, torch.zeros_like(R), state=state))]
+
+
+def attention_made_causal(cross):
+    """Whisper's cross-attention (``cross``: sq != skv) or its encoder
+    (sq = skv) run causal, q_offset 0 as ``attention_core`` passes it."""
+    from repro_torch.models import attention
+    good = attention.attention_core
+
+    def faulty(cfg, q, k, v, *, causal=True, **kw):
+        if not causal and (q.shape[1] != k.shape[1]) == cross:
+            causal = True
+        return good(cfg, q, k, v, causal=causal, **kw)
+    return [(attention, "attention_core", faulty)]
+
+
+def patches_dropped(model):
+    """The VLM's prompt without its patch rows (the tokens alone at
+    positions 0 ..)."""
+    from repro_torch.models.model_api import arange_positions
+
+    def faulty(params, batch):
+        x = model._embed(params, batch["tokens"])
+        b, s = x.shape[:2]
+        return None, arange_positions(b, s, device=x.device), x
+    return [(model, "prompt_inputs", faulty)]
+
+
+# each family's planted faults: {fault: (the gate it must fail, patches
+# of the model)}; "logits": ``prompt_gate`` on every prompt row within
+# E2E_REL_TOL, "encoder": on every row of Whisper's encoder output (b,
+# 1 500 frames, 512) within WHISPER_ENC_TOL
+FAM_FAULTS = {
+    XLSTM_ARCH: {"mLSTM chunk carry reset between chunks":
+                 ("logits", lambda m: mlstm_carry_reset()),
+                 "sLSTM recurrent term R dropped":
+                 ("logits", lambda m: slstm_r_dropped())},
+    WHISPER_ARCH: {"cross-attention run causal":
+                   ("logits", lambda m: attention_made_causal(True)),
+                   "encoder run causal":
+                   ("encoder", lambda m: attention_made_causal(False))},
+    VLM_ARCH: {"patches dropped from the prompt":
+               ("logits", patches_dropped)}}
+
+
+def encoder_rows(model, params, batch, dev):
+    """Whisper's encoder output (b, se, d) on ``batch``'s frames."""
+    import torch
+    frames = torch.as_tensor(batch["frames"], device=dev)
+    return model._encode(params, frames, remat=False)
+
+
+def family_flops(cfg, params, b, s):
+    """Model FLOPs of one training step (forward and backward, 3x the
+    forward's products): 6 N T for the weights (Whisper: the encoder's
+    and the cross K/V projections' over the frames, the rest over the
+    tokens), 12 h d for each attention pair (Whisper: the encoder's
+    pairs, the decoder's causal ones and the cross pairs), and xLSTM's
+    mLSTM chunk products (q k^T and W v within a chunk, C q and k v^T
+    across: 4 h c dh + 4 h dh^2 a token each way) and sLSTM recurrences
+    (8 h dh^2 a token)."""
+    from repro_torch.models.params import tree_leaves
+    n = sum(x.numel() for x in tree_leaves(params))
+    if cfg.family == "audio":
+        dec = params["decoder"]
+        n_xkv = dec["xattn_wk"].numel() + dec["xattn_wv"].numel()
+        n_enc = sum(x.numel() for x in tree_leaves(params["encoder"])) + \
+            sum(x.numel() for x in tree_leaves(params["enc_final"]))
+        n_tok = n - n_enc - n_xkv
+        se = WHISPER_FRAMES
+        hd = cfg.n_heads * cfg.head_dim
+        pairs = cfg.encoder_layers * se * se + cfg.n_layers * (
+            causal_pairs(s, s, 0, s) + s * se)
+        return 6 * b * ((n_enc + n_xkv) * se + n_tok * s) + \
+            12 * hd * b * pairs
+    if cfg.family == "ssm":
+        d_in = cfg.ssm.expand * cfg.d_model
+        h, dh = cfg.n_heads, d_in // cfg.n_heads
+        c = min(cfg.ssm.chunk_size, s)
+        dhs = cfg.d_model // cfg.n_heads
+        n_m = cfg.block_pattern.count("m")
+        n_s = cfg.block_pattern.count("s")
+        cells = n_m * (4 * h * c * dh + 4 * h * dh * dh) + \
+            n_s * 8 * h * dhs * dhs
+        return 6 * n * b * s + 3 * cells * b * s
+    t = s + cfg.n_frontend_tokens
+    return 6 * n * b * t + 12 * cfg.n_layers * cfg.n_heads * \
+        cfg.head_dim * b * causal_pairs(t, t, 0, t)
+
+
+def family_phase(arch, dev):
+    """One family at full width (internvl2-76b with VLM_LAYERS layers),
+    random bf16 weights drawn once on the card from SEED.  Serving:
+    FAM_REQUESTS requests, FAM_GEN greedy tokens, the kernel path timed
+    with its launches counted (every serving kernel of the family must
+    launch), the plain path (attn_impl / norm_impl "ref") on the same
+    batch; gate (i) ``stream_gate`` on every stream; every prompt row's
+    logits against the plain path's within E2E_REL_TOL (``prompt_gate``;
+    Whisper's encoder output rows too) and the family's planted faults
+    (``FAM_FAULTS``), each of which must fail its gate.  Training: the
+    kernel path's loss and gradients against the plain path's
+    (TRAIN_LOSS_REL_TOL, TRAIN_GRAD_REL_TOL), then FAM_STEPS AdamW steps
+    through ``parallel.plan.make_train_step`` (remat), every training
+    kernel launched.  Returns (record, failures)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.telemetry import now
+    from repro_torch.train_lib import loss_and_grads
+    cfg = family_config(arch)
+    model = build_model(cfg)
+    plain = build_model(dataclasses.replace(cfg, attn_impl="ref",
+                                            norm_impl="ref"))
+    params = model.init(SEED, device=dev, dtype="bfloat16")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    serve_kernels, train_kernels = FAM_KERNELS[arch]
+    failures, parts = [], {}
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # serving
+    batch = family_batch(cfg, FAM_REQUESTS, FAM_PROMPT[arch], 0, False)
+    toks, serve = family_serve(model, params, batch, dev)
+    t0 = now()
+    print(json.dumps({"family_serve": arch, **serve}), flush=True)
+    dead = [k for k in serve_kernels if serve["launches"][k] <= 0]
+    if dead:
+        failures.append(f"{arch} serving: kernels never launched: {dead}")
+    plain_toks, _ = family_serve(plain, params, batch, dev)
+
+    def forced(idx, streams, n_ticks):
+        sub = {k: v[idx] for k, v in batch.items()}
+        return dense_forced(model, params, sub, streams, dev, n_ticks)
+    gate_i = stream_gate(model, params, None, list(plain_toks), list(toks),
+                         dev, E2E_REL_TOL, forced=forced, arch=arch)
+    print(json.dumps({"family_gate_i": gate_i}), flush=True)
+    if not gate_i["ok"]:
+        failures.append(f"{arch} serving: gate (i) failed: {gate_i}")
+    parts["serve_gate_i"] = now() - t0
+    t0 = now()
+    gates = {"logits": (prompt_logits, E2E_REL_TOL)}
+    if cfg.family == "audio":
+        gates["encoder"] = (encoder_rows, WHISPER_ENC_TOL)
+    refs = {g: fn(plain, params, batch, dev)
+            for g, (fn, _) in gates.items()}
+    sound = {g: prompt_gate(fn(model, params, batch, dev), refs[g], tol)
+             for g, (fn, tol) in gates.items()}
+    for g, r in sound.items():
+        print(json.dumps({"family_gate": g, "arch": arch, **r}), flush=True)
+        if not r["ok"]:
+            failures.append(f"{arch} serving: {g} gate {r}")
+    controls = []
+    for fault, (gate, patches) in FAM_FAULTS[arch].items():
+        row = {"fault": fault, "gate": gate}
+        for g, (fn, tol) in gates.items():
+            r = prompt_gate(with_patches(patches(model), lambda: fn(
+                model, params, batch, dev)), refs[g], tol)
+            row[g] = {k: r[k] for k in ("worst_row_rel", "first_token_rel",
+                                        "worst_request_rel")}
+            if g == gate:
+                row["caught"] = not r["ok"]
+        print(json.dumps({"family_fault": arch, **row}), flush=True)
+        controls.append(row)
+        if not row["caught"]:
+            failures.append(f"{arch}: planted fault '{fault}' passed the "
+                            f"{gate} gate")
+    del refs
+    parts["serve_faults"] = now() - t0
+    serve_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.empty_cache()
+
+    # training
+    b, s = FAM_TRAIN[arch]
+
+    def batch_fn(i):
+        return on_device(family_batch(cfg, b, s, i, True), dev)
+    t0 = now()
+    b0 = batch_fn(0)
+    lp, _, gp = loss_and_grads(plain, params, b0)
+    lp = float(lp)
+    vs_plain = loss_grads_against(model, params, b0, lp, gp)
+    vs_plain["ok"] = vs_plain.pop("within") and math.isfinite(lp)
+    del gp, b0
+    print(json.dumps({"family_train_vs_plain": arch, **{
+        k: vs_plain[k] for k in ("loss_kernel", "loss_ref", "loss_rel",
+                                 "grad_rel_max", "grad_rel_max_leaf",
+                                 "ok")}}), flush=True)
+    if not vs_plain["ok"]:
+        failures.append(f"{arch} training kernel vs plain: loss_rel "
+                        f"{vs_plain['loss_rel']}, worst grad_rel "
+                        f"{vs_plain['grad_rel_max']} "
+                        f"({vs_plain['grad_rel_max_leaf']})")
+    flops = family_flops(cfg, params, b, s)
+    tokens = b * (s + cfg.n_frontend_tokens)
+    parts["train_gates"] = now() - t0
+    t0 = now()
+    train, tf = train_steps(model, params, cfg, dev, train_kernels,
+                            n_params, f"{arch}_train", steps=FAM_STEPS,
+                            batch_fn=batch_fn, tokens=tokens, flops=flops)
+    parts["train_steps_and_profile"] = now() - t0
+    del params
+    torch.cuda.empty_cache()
+    failures += tf
+    train.update(batch=b, seq=s + cfg.n_frontend_tokens,
+                 vs_plain=vs_plain)
+    return {"arch": arch, "layers": cfg.n_layers, "params": n_params,
+            "serve": serve, "serve_peak_mem_gb": serve_peak,
+            "gate_i": gate_i, "logits": sound["logits"],
+            "encoder": sound.get("encoder"), "controls": controls,
+            "train": train, "seconds_by_part": parts,
+            "tokens_equal_to_plain": int(np.all(toks == plain_toks, 1).sum())
+            }, failures
+
+
+def families_phase(dev):
+    """xlstm-125m and whisper-base at full size, internvl2-76b at full
+    width with VLM_LAYERS of its 80 layers: ``family_phase`` each."""
+    out, failures = {}, []
+    for arch in (XLSTM_ARCH, WHISPER_ARCH, VLM_ARCH):
+        out[arch], f = family_phase(arch, dev)
+        failures += f
     return out, failures
 
 
@@ -5682,6 +6217,8 @@ def main():
     torch.cuda.empty_cache()
     train, train_failures = timed("phi4 training", lambda: train_phase(dev))
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"profile_sums": train["profile"][
+        "against_key_averages"]}), flush=True)
     failures += train_failures
     torch.cuda.empty_cache()
     ckpt, ckpt_failures = timed("checkpoint", lambda: ckpt_phase(dev))
@@ -5702,6 +6239,9 @@ def main():
                                           lambda: hybrid_train_phase(dev))
     print(json.dumps({"hybrid_train": hybrid_train}), flush=True)
     failures += hybrid_failures
+    torch.cuda.empty_cache()
+    fams, fam_failures = timed("families", lambda: families_phase(dev))
+    failures += fam_failures
     torch.cuda.empty_cache()
     ddp, ddp_failures = timed("ddp training", lambda: ddp_phase(dev))
     failures += ddp_failures
@@ -5774,6 +6314,15 @@ def main():
                 runs[label] = run["launches"][name]
                 per_step[f"{label} (per step)"] = \
                     run["launches"][name] / PP_STEPS
+        for arch, fam in fams.items():
+            if fam["serve"]["launches"].get(name, 0):
+                runs[f"{arch} serve {FAM_REQUESTS} requests"] = \
+                    fam["serve"]["launches"][name]
+            if name in FAM_KERNELS[arch][1]:
+                runs[f"{arch} train {FAM_STEPS} steps"] = \
+                    fam["train"]["launches"][name]
+                per_step[f"{arch} train (per step)"] = \
+                    fam["train"]["launches_per_step"][name]
         if name in FT_KERNELS:
             label = f"{FT_ARCH} ft drill, both legs, 4 ranks"
             runs[label] = ft["launches"][name]
@@ -5805,10 +6354,34 @@ def main():
                                "mfu_vs_bf16_dense_peak", "peak_mem_gb",
                                "losses", "launches_per_step")}}),
             flush=True)
+    print(json.dumps({"families_summary": {"card": card, **{
+        arch: {"layers": f["layers"], "params": f["params"],
+               "serve": {k: f["serve"][k] for k in (
+                   "via", "seconds", "tokens_per_s", "ttft_p50_s",
+                   "ttft_p95_s", "tpot_p50_s", "tpot_p95_s")},
+               "serve_peak_mem_gb": f["serve_peak_mem_gb"],
+               "streams_equal_to_plain": f["gate_i"]["equal_to_end"],
+               "logits": {k: f["logits"][k] for k in (
+                   "first_token_rel", "worst_row_rel", "rows")},
+               **({"encoder": {k: f["encoder"][k] for k in (
+                   "worst_request_rel", "worst_row_rel")}}
+                  if f["encoder"] else {}),
+               "seconds_by_part": f["seconds_by_part"],
+               "controls": f["controls"],
+               "train": {k: f["train"][k] for k in (
+                   "batch", "seq", "median_step_s", "tokens_per_s",
+                   "mfu_vs_bf16_dense_peak", "peak_mem_gb", "losses",
+                   "launches_per_step")},
+               "train_busy_share":
+                   f["train"]["profile"]["device_busy_share"],
+               "train_vs_plain": {k: f["train"]["vs_plain"][k] for k in (
+                   "loss_rel", "grad_rel_max", "grad_rel_max_leaf")}}
+        for arch, f in fams.items()}}}), flush=True)
     print(json.dumps({"ddp_summary": ddp}), flush=True)
     print(json.dumps({"pp_summary": {"card": card, **pp}}), flush=True)
     print(json.dumps({"ft_summary": {"card": card, **{
-        k: ft[k] for k in ("arch", "classes", "step_s", "post_restore_rel",
+        k: ft[k] for k in ("arch", "classes", "step_s",
+                           "post_restore_rel",
                            "lost_steps", "ckpt_s", "leg_seconds",
                            "launches_per_step", "controls")},
         "validator": {n: c["value"] for n, c in

@@ -11,6 +11,12 @@ continuous-batching engine (``--decode-impl paged``).
       --decode-impl paged --replicas 2 --prefill-replicas 2 \\
       --slo-ttft-ms 500 --slo-tpot-ms 100
 
+Every family serves on the dense path: the VLM (``internvl2-76b``) with
+its stub frontend's patch embeddings and Whisper (``whisper-base``) with
+its frame embeddings, both drawn by ``data.synthetic.batch_for_model``,
+and xLSTM (``xlstm-125m``); the paged engine takes the dense, MoE and
+hybrid families, as the JAX engine does.
+
 Runs on the card by default (``--device cuda``) and stops with an error
 when there is none; ``--device cpu`` runs the plain PyTorch path.  At
 full width the weights are drawn once in the compute dtype (``--dtype``,
@@ -106,8 +112,9 @@ def main(argv=None):
     cfg, model, params = build(args.arch, smoke=args.smoke, dtype=args.dtype,
                                device=device, seed=args.seed)
     impl = args.decode_impl or cfg.decode_impl
-    tokens = batch_for_model(cfg, "prefill", 0, args.batch, args.prompt_len,
-                             args.seed)["tokens"]
+    batch = batch_for_model(cfg, "prefill", 0, args.batch, args.prompt_len,
+                            args.seed)
+    tokens = batch["tokens"]
     writer = None
     if args.trace:
         from repro_torch.telemetry import TraceWriter, install_writer
@@ -118,7 +125,7 @@ def main(argv=None):
             return _serve_cluster(model, params, tokens, args, device)
         if impl == "paged":
             return _serve_paged(model, params, tokens, args, device)
-        return _serve_dense(model, params, tokens, args, device)
+        return _serve_dense(model, params, batch, args, device)
     finally:
         if writer is not None:
             from repro_torch.telemetry import uninstall_writer
@@ -142,20 +149,23 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _serve_dense(model, params, tokens, args, device):
-    """Lockstep decode through the chunk API: the prompt is one fresh
-    chunk, every decode step a T = 1 chunk; the SeqState holds prompt +
-    gen up front."""
-    toks_in = torch.as_tensor(np.asarray(tokens), device=device)
-    tok, positions, _ = model.prompt_inputs(params, {"tokens": toks_in})
+def _serve_dense(model, params, batch, args, device):
+    """Lockstep decode through the chunk API: the prompt (``batch``: the
+    model-format prefill inputs, a VLM's patches or Whisper's frames
+    included) is one fresh chunk, every decode step a T = 1 chunk; the
+    SeqState holds prompt + gen up front."""
+    batch = {k: torch.as_tensor(np.asarray(v), device=device)
+             for k, v in batch.items()}
+    tok, positions, embeds = model.prompt_inputs(params, batch)
     b, s = positions.shape
     t0 = now()
     with span("serve.dense_prefill", batch=b, prompt_len=s):
-        state = model.init_seq_state(params, s + args.gen, batch_size=b,
+        state = model.init_seq_state(params, s + args.gen, batch=batch,
+                                     batch_size=b,
                                      dtype=model.cfg.compute_dtype,
                                      device=device)
         state, logits = model.forward(params, state, tok, positions,
-                                      fresh=True)
+                                      embeds=embeds, fresh=True)
         _sync(device)
     t_prefill = now() - t0
     toks = torch.argmax(logits, dim=-1).to(torch.int32)

@@ -1,6 +1,7 @@
-"""Models of the port: the dense and MoE decoder-only families and the
-Zamba2 hybrid."""
-from repro_torch.models.model_api import (BaseLM, DecoderLM, ZambaLM,
-                                          build_model)
+"""Models of the port: the dense, MoE and VLM decoder-only families,
+the Zamba2 hybrid, Whisper and xLSTM."""
+from repro_torch.models.model_api import (BaseLM, DecoderLM, WhisperLM,
+                                          XLSTMLM, ZambaLM, build_model)
 
-__all__ = ["BaseLM", "DecoderLM", "ZambaLM", "build_model"]
+__all__ = ["BaseLM", "DecoderLM", "WhisperLM", "XLSTMLM", "ZambaLM",
+           "build_model"]

@@ -1,6 +1,8 @@
-"""Shared model building blocks: norms, activations, RoPE, the loss
-(port of ``repro/models/common.py``)."""
+"""Shared model building blocks: norms, activations, RoPE, sinusoidal
+positions, the loss (port of ``repro/models/common.py``)."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -89,6 +91,21 @@ def apply_rope(x, cos, sin):
     sin = sin.to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def sinusoidal_pe(positions, d_model: int):
+    """Whisper-style sinusoidal embeddings at arbitrary integer positions:
+    (...,) -> (..., d_model) fp32, sines then cosines."""
+    half = d_model // 2
+    dim = torch.arange(half, dtype=torch.float32, device=positions.device)
+    inv = torch.exp(-math.log(10_000.0) * dim / half)
+    ang = positions[..., None].float() * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(max_len: int, d_model: int, device=None):
+    """Fixed sinusoidal embedding table (max_len, d_model) fp32."""
+    return sinusoidal_pe(torch.arange(max_len, device=device), d_model)
 
 
 # ------------------------------ loss ---------------------------------------

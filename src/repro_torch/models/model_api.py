@@ -1,5 +1,6 @@
-"""Model API (port of ``repro/models/model_api.py``): the dense and MoE
-decoder-only families and the Zamba2 hybrid.
+"""Model API (port of ``repro/models/model_api.py``): the dense, MoE and
+VLM decoder-only families, the Zamba2 hybrid, Whisper (encoder-decoder)
+and xLSTM.
 
   loss(params, batch) -> (loss, {"ce", "aux_loss"})      training
   init_seq_state(params, max_len, ...) -> SeqState        serving
@@ -10,8 +11,11 @@ tick); ``positions`` (b, T) are absolute per-slot positions, negative =
 padding (not written, skipped by the last-token logit gather).  A state
 holding ``block_tables`` is a paged pool (``_forward_paged``); otherwise
 it is a dense cache {k, v} of shape (L, b, S, kv, hd) (the hybrid's
-also holds its per-layer mamba states).  Cache tensors are updated in
-place and returned in the new state.
+also holds its per-layer mamba states, Whisper's the encoder's cross
+K/V {xk, xv}); xLSTM's is its per-block recurrent states {blocks}.
+Cache tensors are updated in place and returned in the new state.
+Families with non-token inputs (VLM patches, Whisper frames) take them
+in ``batch`` (``prompt_inputs``, ``init_seq_state``, ``loss``).
 
 Parameter trees have the JAX package's keys and shapes, so
 ``bridge.params_from_numpy`` loads JAX-initialised weights directly.
@@ -23,9 +27,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as attn
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models import zamba as zamba_mod
-from repro_torch.models.common import apply_norm, cross_entropy, norm_defs
+from repro_torch.models.attention import _proj
+from repro_torch.models.common import (apply_norm, cross_entropy, norm_defs,
+                                       sinusoidal_pe, sinusoidal_positions)
 from repro_torch.models.params import init_tree, p
 from repro_torch.models.transformer import (_sub, attn_sublayer, chunk_layer,
                                             dense_layer, layer_defs,
@@ -101,6 +110,11 @@ class BaseLM:
         b, s = tokens.shape
         return tokens, arange_positions(b, s, device=tokens.device), None
 
+    def prompt_length(self, batch) -> int:
+        """Sequence positions a prompt occupies (VLM patches included):
+        where decode continues from."""
+        return batch["tokens"].shape[1]
+
     @property
     def prefill_padding_ok(self) -> bool:
         """Whether padding tokens (positions < 0) may ride through a
@@ -128,15 +142,19 @@ class BaseLM:
 
 
 class DecoderLM(BaseLM):
-    """Dense / MoE decoder-only LM over stacked layers.  MoE layers
+    """Dense / MoE / VLM decoder-only LM over stacked layers.  MoE layers
     replace the MLP with ``models.moe.apply_moe`` in groups of
     ``moe_group`` tokens: capacity-limited in training (its aux loss
-    summed over the layers into the loss), dropless when serving."""
+    summed over the layers into the loss), dropless when serving.  The
+    VLM prepends ``batch["patches"]`` (b, npatch, d), the stub frontend's
+    patch embeddings, at positions 0 .. npatch - 1; its loss drops their
+    rows."""
 
     def __init__(self, cfg: ModelConfig,
                  moe_group: int = moe_mod.DEFAULT_GROUP):
         super().__init__(cfg)
         self.is_moe = cfg.moe is not None
+        self.is_vlm = cfg.family == "vlm"
         self.moe_group = moe_group
 
     def param_defs(self):
@@ -177,18 +195,35 @@ class DecoderLM(BaseLM):
         return ffn
 
     def _inputs(self, params, batch):
-        return self._embed(params, batch["tokens"])
+        x = self._embed(params, batch["tokens"])
+        if self.is_vlm:
+            patches = batch["patches"].to(self.compute_dtype)
+            x = torch.cat([patches, x], dim=1)
+        return x
 
     def loss(self, params, batch, remat=True):
-        """batch {"tokens", "labels"[, "mask"]} (b, s) -> (ce + aux,
-        {"ce", "aux_loss"}); aux is the MoE layers' summed load-balance
-        loss, a zero scalar for the dense family.
-        ``remat``: recompute each layer in the backward (see
+        """batch {"tokens", "labels"[, "mask"]} (b, s) (the VLM's also
+        "patches") -> (ce + aux, {"ce", "aux_loss"}); aux is the MoE
+        layers' summed load-balance loss, a zero scalar for the dense
+        family.  ``remat``: recompute each layer in the backward (see
         ``scan_layers``)."""
         x = self._inputs(params, batch)
         x, aux = self._forward(params, x, remat=remat)
+        if self.is_vlm:
+            x = x[:, self.cfg.n_frontend_tokens:]
         ce = self._ce(params, x, batch["labels"], batch.get("mask"))
         return ce + aux, {"ce": ce, "aux_loss": aux}
+
+    def prompt_inputs(self, params, batch):
+        if not self.is_vlm:
+            return super().prompt_inputs(params, batch)
+        x = self._inputs(params, batch)          # (b, npatch + s, d)
+        b, t = x.shape[:2]
+        return None, arange_positions(b, t, device=x.device), x
+
+    def prompt_length(self, batch) -> int:
+        npatch = self.cfg.n_frontend_tokens if self.is_vlm else 0
+        return batch["tokens"].shape[1] + npatch
 
     def init_seq_state(self, params, max_len, *, batch=None,
                        batch_size=None, dtype="bfloat16", device=None):
@@ -331,23 +366,199 @@ class ZambaLM(BaseLM):
             self.cfg, n_slots, self.compute_dtype, device)}
 
 
-_NOT_PORTED = ("vlm", "ssm", "audio")
+class WhisperLM(BaseLM):
+    """Encoder-decoder (Whisper): the stub frontend's frame embeddings
+    ``batch["frames"]`` (b, se, d) plus sinusoidal positions through a
+    non-causal encoder, then a decoder whose layers cross-attend to the
+    encoder output's per-layer K/V (``_cross_kv``).  Decoder tokens take
+    sinusoidal embeddings at their per-slot positions.  The serving
+    state holds the cross K/V {xk, xv} (L, b, se, kv, hd) beside the
+    self-attention cache, computed once by ``init_seq_state``."""
+
+    @property
+    def prefill_padding_ok(self) -> bool:
+        return True     # the decoder mixes only through masked attention
+
+    def param_defs(self):
+        cfg = self.cfg
+        defs = _embed_defs(cfg)
+        defs["encoder"] = stack_defs(layer_defs(cfg), cfg.encoder_layers)
+        defs["enc_final"] = norm_defs(cfg)
+        defs["decoder"] = stack_defs(layer_defs(cfg, cross_attention=True),
+                                     cfg.n_layers)
+        return defs
+
+    def _encode(self, params, frames, remat=True):
+        cfg = self.cfg
+        cd = self.compute_dtype
+        pos = sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                   device=frames.device)
+        x = frames.to(cd) + pos.to(cd)
+
+        def fn(h, aux, lp):
+            return dense_layer(cfg, lp, h, causal=False), aux
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _ = scan_layers(fn, x, aux, params["encoder"], remat=remat)
+        return apply_norm(cfg, params["enc_final"], x, name="norm")
+
+    def _cross_kv(self, params, enc):
+        """The decoder layers' cross K/V of the encoder output, stacked:
+        (L, b, se, kv, hd) each."""
+        dec = params["decoder"]
+        ks = [_proj(enc, w) for w in dec["xattn_wk"].unbind(0)]
+        vs = [_proj(enc, w) for w in dec["xattn_wv"].unbind(0)]
+        return torch.stack(ks), torch.stack(vs)
+
+    def _decode_stack(self, params, x, xks, xvs, remat=True):
+        cfg = self.cfg
+
+        def fn(h, aux, lp):
+            return dense_layer(cfg, lp, h, causal=True,
+                               cross_kv=(lp["cross_k"], lp["cross_v"])), aux
+        # each layer's cross K/V ride in the stacked tree, split with its
+        # params (no prefix of dense_layer's reads them)
+        layers = {**params["decoder"], "cross_k": xks, "cross_v": xvs}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return scan_layers(fn, x, aux, layers, remat=remat)[0]
+
+    def _dec_inputs(self, params, tokens, positions):
+        """Token embeddings + sinusoidal embeddings at per-slot
+        positions."""
+        x = self._embed(params, tokens)
+        return x + sinusoidal_pe(positions, self.cfg.d_model).to(x.dtype)
+
+    def loss(self, params, batch, remat=True):
+        """batch {"frames" (b, se, d), "tokens", "labels"[, "mask"] (b,
+        s)} -> (ce, {"ce"}); ``remat`` recomputes each encoder and decoder
+        layer in the backward."""
+        enc = self._encode(params, batch["frames"], remat=remat)
+        xks, xvs = self._cross_kv(params, enc)
+        b, s = batch["tokens"].shape
+        x = self._dec_inputs(params, batch["tokens"],
+                             arange_positions(b, s, device=enc.device))
+        x = self._decode_stack(params, x, xks, xvs, remat=remat)
+        ce = self._ce(params, x, batch["labels"], batch.get("mask"))
+        return ce, {"ce": ce}
+
+    def init_seq_state(self, params, max_len, *, batch=None,
+                       batch_size=None, dtype="bfloat16", device=None):
+        """Runs the encoder on ``batch["frames"]`` and keeps the cross
+        K/V.  On the ``meta`` device (a restore template) only the
+        shapes are made: the encoder does not run."""
+        cfg = self.cfg
+        if batch is None or "frames" not in batch:
+            raise ValueError("Whisper's init_seq_state needs "
+                             "batch['frames'] for the encoder")
+        frames = batch["frames"]
+        b, se = frames.shape[0], frames.shape[1]
+        if device is None:
+            device = params["embed"].device
+        kv, hd, L = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+        dt = torch_dtype(dtype)
+        if torch.device(device).type == "meta":
+            xks = xvs = torch.empty((L, b, se, kv, hd), dtype=dt,
+                                    device=device)
+        else:
+            enc = self._encode(params, frames.to(device), remat=False)
+            xks, xvs = self._cross_kv(params, enc)
+        shape = (L, b, max_len, kv, hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device),
+                "xk": xks.to(dt), "xv": xvs.to(dt)}
+
+    def forward(self, params, state, tokens, positions, *, embeds=None,
+                fresh=False, all_logits=False):
+        """Advance ``state`` by one decoder chunk; returns (state',
+        logits (b, V)), or (b, T, V) with ``all_logits``."""
+        cfg = self.cfg
+        x = embeds if embeds is not None else self._dec_inputs(
+            params, tokens, positions)
+        for i in range(cfg.n_layers):
+            x = chunk_layer(cfg, layer_slice(params["decoder"], i), x,
+                            state["k"][i], state["v"][i], positions,
+                            fresh=fresh,
+                            cross_kv=(state["xk"][i], state["xv"][i]))
+        logits = self._chunk_logits(params, x, positions, all_logits)
+        return state, logits
+
+
+class XLSTMLM(BaseLM):
+    """xLSTM: blocks ``block_i`` of ``cfg.block_pattern`` ("m": mLSTM,
+    "s": sLSTM; ``models.xlstm``), no attention.  The serving state is
+    the per-block recurrent states {blocks}; a prompt is exact-length
+    chunks (padding would enter the recurrences)."""
+
+    def param_defs(self):
+        cfg = self.cfg
+        defs = _embed_defs(cfg)
+        for i, kind in enumerate(cfg.block_pattern):
+            defs[f"block_{i}"] = (xlstm_mod.mlstm_block_defs(cfg)
+                                  if kind == "m" else
+                                  xlstm_mod.slstm_block_defs(cfg))
+        return defs
+
+    def loss(self, params, batch, remat=True):
+        """batch {"tokens", "labels"[, "mask"]} (b, s) -> (ce, {"ce"});
+        ``remat`` recomputes each block in the backward."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        for i, kind in enumerate(cfg.block_pattern):
+            fn = (xlstm_mod.apply_mlstm_block if kind == "m"
+                  else xlstm_mod.apply_slstm_block)
+            blk = params[f"block_{i}"]
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(fn, cfg, blk, x, use_reentrant=False)
+            else:
+                x = fn(cfg, blk, x)
+        ce = self._ce(params, x, batch["labels"], batch.get("mask"))
+        return ce, {"ce": ce}
+
+    def init_seq_state(self, params, max_len, *, batch=None,
+                       batch_size=None, dtype="bfloat16", device=None):
+        """Fixed-size recurrent states (``max_len`` and ``dtype`` unused:
+        the conv window keeps the compute dtype, the cells fp32)."""
+        b = batch_size if batch_size is not None else len(batch["tokens"])
+        if device is None:
+            device = params["embed"].device
+        return {"blocks": xlstm_mod.xlstm_init_states(
+            self.cfg, b, self.compute_dtype, device)}
+
+    def forward(self, params, state, tokens, positions, *, embeds=None,
+                fresh=False, all_logits=False):
+        """Advance ``state`` by one exact-length chunk (T = 1: a decode
+        step); returns (state', logits)."""
+        cfg = self.cfg
+        x = embeds if embeds is not None else self._embed(params, tokens)
+        decode = x.shape[1] == 1 and not fresh
+        new_states = []
+        for i, kind in enumerate(cfg.block_pattern):
+            blk = params[f"block_{i}"]
+            st = None if fresh else state["blocks"][i]
+            if kind == "m":
+                fn = (xlstm_mod.mlstm_block_decode if decode
+                      else xlstm_mod.mlstm_block_prefill)
+            else:
+                fn = (xlstm_mod.slstm_block_decode if decode
+                      else xlstm_mod.slstm_block_prefill)
+            x, st = fn(cfg, blk, x, st)
+            new_states.append(st)
+        logits = self._chunk_logits(params, x, positions, all_logits)
+        return {**state, "blocks": new_states}, logits
 
 
 def build_model(cfg: ModelConfig, *, moe_group: int | None = None) -> BaseLM:
     """The model of ``cfg.family``; ``moe_group``: the MoE dispatch group
     size (default ``models.moe.DEFAULT_GROUP``)."""
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg, moe_group=moe_group or moe_mod.DEFAULT_GROUP)
+    if cfg.family == "audio":
+        return WhisperLM(cfg)
     if cfg.family == "hybrid":
         return ZambaLM(cfg)
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            f"repro_torch yet; only the dense, MoE and hybrid families "
-            f"are")
+    if cfg.family == "ssm":
+        return XLSTMLM(cfg)
     raise ValueError(cfg.family)
 
 
-__all__ = ["BaseLM", "DecoderLM", "ZambaLM", "arange_positions",
-           "build_model", "last_valid_index"]
+__all__ = ["BaseLM", "DecoderLM", "WhisperLM", "XLSTMLM", "ZambaLM",
+           "arange_positions", "build_model", "last_valid_index"]

@@ -1,6 +1,7 @@
 """Decoder layers for training and the chunk-oriented serving forward
 (port of ``repro/models/transformer.py``); the serving layers take the
-MoE family's FFN in place of the dense MLP.
+MoE family's FFN in place of the dense MLP, and Whisper's decoder layers
+a cross-attention sublayer over the encoder's K/V (``cross_kv``).
 
 Layers are stacked along a leading axis, as in the JAX parameter tree;
 where JAX runs ``lax.scan`` over that axis, the port loops over the
@@ -51,12 +52,17 @@ def apply_mlp(cfg, params, x, prefix=""):
 # ----------------------------- one layer -----------------------------------
 
 
-def layer_defs(cfg):
-    """One layer's parameters: ln1_, attn_, ln2_ and the FFN's, mlp_ for
-    the dense family or moe_ for the MoE family."""
+def layer_defs(cfg, cross_attention=False):
+    """One layer's parameters: ln1_, attn_, (with ``cross_attention``
+    Whisper's lnx_ and xattn_), ln2_ and the FFN's, mlp_ for the dense
+    family or moe_ for the MoE family."""
     defs = {}
     defs.update({f"ln1_{k}": v for k, v in norm_defs(cfg).items()})
     defs.update({f"attn_{k}": v for k, v in attn.attn_defs(cfg).items()})
+    if cross_attention:
+        defs.update({f"lnx_{k}": v for k, v in norm_defs(cfg).items()})
+        defs.update({f"xattn_{k}": v
+                     for k, v in attn.attn_defs(cfg).items()})
     defs.update({f"ln2_{k}": v for k, v in norm_defs(cfg).items()})
     if cfg.moe is None:
         defs.update(mlp_defs(cfg, prefix="mlp_"))
@@ -84,9 +90,23 @@ def attn_sublayer(cfg, lp, x, *, causal=True, positions=None):
     return x + attn.out_proj(cfg, _sub(lp, "attn_"), o)
 
 
-def dense_layer(cfg, lp, x, *, causal=True, positions=None):
-    """Pre-norm transformer layer over a whole sequence. x (b, s, d)."""
+def cross_attn_sublayer(cfg, lp, x, xk, xv):
+    """x + cross-attention of ln_x(x) over the encoder's K/V xk / xv (b,
+    se, kv, hd), residual included: non-causal, every query sees every
+    encoder frame (the flash kernels' non-causal path on the card, sq !=
+    skv, one-row queries at a decode tick)."""
+    h = apply_norm(cfg, _sub(lp, "lnx_"), x, name="norm")
+    q = attn._proj(h, lp["xattn_wq"])
+    o = attn.attention_core(cfg, q, xk, xv, causal=False)
+    return x + attn.out_proj(cfg, _sub(lp, "xattn_"), o)
+
+
+def dense_layer(cfg, lp, x, *, causal=True, positions=None, cross_kv=None):
+    """Pre-norm transformer layer over a whole sequence. x (b, s, d);
+    ``cross_kv`` (xk, xv): Whisper's decoder layer."""
     x = attn_sublayer(cfg, lp, x, causal=causal, positions=positions)
+    if cross_kv is not None:
+        x = cross_attn_sublayer(cfg, lp, x, *cross_kv)
     return _ffn_sublayer(cfg, lp, x, None)
 
 
@@ -114,13 +134,14 @@ def paged_chunk_layer(cfg, lp, x, k_pool, v_pool, block_tables, positions,
     return _ffn_sublayer(cfg, lp, x, ffn)
 
 
-def chunk_layer(cfg, lp, x, ck, cv, positions, *, fresh=False, ffn=None):
+def chunk_layer(cfg, lp, x, ck, cv, positions, *, fresh=False, ffn=None,
+                cross_kv=None):
     """One layer of the chunk-oriented forward against a dense cache
     ck/cv (b, S, kv, hd), updated in place.  ``fresh=True`` is the
     caller's promise that the cache is factory-fresh and valid positions
     are lockstep ``arange`` rows: the layer then runs the causal flash
     core over the chunk itself instead of the cache.  ``ffn`` as in
-    ``paged_chunk_layer``."""
+    ``paged_chunk_layer``; ``cross_kv`` as in ``dense_layer``."""
     h = apply_norm(cfg, _sub(lp, "ln1_"), x, name="norm")
     q, k, v = attn.project_qkv(cfg, _sub(lp, "attn_"), h,
                                positions=positions)
@@ -130,6 +151,8 @@ def chunk_layer(cfg, lp, x, ck, cv, positions, *, fresh=False, ffn=None):
     else:
         o = attn.chunk_attention(cfg, q, ck, cv, positions)
     x = x + attn.out_proj(cfg, _sub(lp, "attn_"), o)
+    if cross_kv is not None:
+        x = cross_attn_sublayer(cfg, lp, x, *cross_kv)
     return _ffn_sublayer(cfg, lp, x, ffn)
 
 

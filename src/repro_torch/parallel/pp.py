@@ -184,7 +184,7 @@ def peak_live_activations(n_stages: int, n_micro: int,
 
 def _check_pp_model(model):
     from repro_torch.models.model_api import DecoderLM
-    if not isinstance(model, DecoderLM) or model.is_moe:
+    if not isinstance(model, DecoderLM) or model.is_moe or model.is_vlm:
         raise ValueError(
             "mode='pp' currently pipelines dense decoder-only LMs "
             "(params['layers'] stacked, embed/head on the edge stages); "

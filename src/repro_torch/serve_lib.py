@@ -3,7 +3,8 @@ caching on disk (paper §VI-B4).
 
 * ``KVContextCache``: content-addressed store of prefilled decode
   states (any family's cache tree) on a 3FS-KV namespace, keyed by a
-  hash of the exact token prefix.
+  hash of the exact token prefix (and of a VLM's patches or Whisper's
+  frames, which the state depends on too).
 * ``BatchServer``: prefill-or-restore + greedy decode over request
   batches, with hit-rate accounting: the dense lockstep path against
   one contiguous SeqState, or the paged ``ServingEngine``.
@@ -32,6 +33,23 @@ def _prefix_key(tokens: np.ndarray) -> str:
     paged prefix index, the 3FS prefix store and ``KVContextCache``
     share it."""
     h = hashlib.sha256(np.ascontiguousarray(tokens, np.int32).tobytes())
+    return h.hexdigest()[:32]
+
+
+def _batch_key(batch: dict) -> str:
+    """Identity of a model-format prefill batch: ``_prefix_key`` of its
+    tokens when they are the whole prompt; with a VLM's patches or
+    Whisper's frames beside them, of the tokens and those arrays
+    together (the prefilled state depends on both)."""
+    extra = sorted(k for k in batch if k != "tokens")
+    if not extra:
+        return _prefix_key(batch["tokens"])
+    h = hashlib.sha256(np.ascontiguousarray(batch["tokens"],
+                                            np.int32).tobytes())
+    for k in extra:
+        a = np.ascontiguousarray(batch[k])
+        h.update(f"{k}:{a.dtype.str}:{a.shape}".encode())
+        h.update(a.tobytes())
     return h.hexdigest()[:32]
 
 
@@ -150,16 +168,18 @@ class KVContextCache:
         self.hits = 0
         self.misses = 0
 
-    def get(self, tokens: np.ndarray, template):
-        raw = self.kv.get(_prefix_key(tokens))
+    def get(self, batch: dict, template):
+        """``batch``: the model-format prefill batch (host arrays: tokens,
+        and a VLM's patches or Whisper's frames)."""
+        raw = self.kv.get(_batch_key(batch))
         if raw is None:
             self.misses += 1
             return None
         self.hits += 1
         return _unpack_tree(raw, template)
 
-    def put(self, tokens: np.ndarray, cache) -> None:
-        self.kv.put(_prefix_key(tokens), _pack_tree(cache))
+    def put(self, batch: dict, cache) -> None:
+        self.kv.put(_batch_key(batch), _pack_tree(cache))
 
     @property
     def hit_rate(self) -> float:
@@ -223,9 +243,13 @@ class BatchServer:
             queue_depth=0,     # dense serve() is synchronous: no queue
             evictions=0, ttft=self._h_ttft, tpot=self._h_tpot, **extras)
 
-    def _tokens(self, batch: dict) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(batch["tokens"]),
-                               dtype=torch.int32, device=self.device)
+    def _on_device(self, batch: dict) -> dict:
+        """The model-format batch (tokens, and a VLM's patches or
+        Whisper's frames) as tensors on the server's device."""
+        out = {k: torch.as_tensor(np.asarray(v), device=self.device)
+               for k, v in batch.items()}
+        out["tokens"] = out["tokens"].to(torch.int32)
+        return out
 
     def _serve_paged(self, batch: dict, gen: int):
         from repro_torch.serving import ServingEngine
@@ -239,26 +263,31 @@ class BatchServer:
         outs = self._engine.run()
         return np.stack([outs[r] for r in rids]), self.stats
 
-    def _template(self, b: int, s: int, gen: int):
-        """(state, logits) of a prefill, shapes and dtypes only."""
-        state = self.model.init_seq_state(self.params, s + gen,
-                                          batch_size=b, device="meta")
+    def _template(self, batch: dict, gen: int):
+        """(state, logits) of a prefill, shapes and dtypes only (on the
+        ``meta`` device: Whisper's encoder does not run)."""
+        b = batch["tokens"].shape[0]
+        state = self.model.init_seq_state(
+            self.params, self.model.prompt_length(batch) + gen, batch=batch,
+            batch_size=b, device="meta")
         logits = torch.empty((b, self.model.cfg.vocab_size),
                              dtype=self.model.compute_dtype, device="meta")
         return state, logits
 
-    def _prefill_state(self, tokens: torch.Tensor, gen: int):
+    def _prefill_state(self, batch: dict, gen: int):
         """One fresh whole-prompt chunk; capacity covers prompt + gen."""
-        tok, positions, embeds = self.model.prompt_inputs(
-            self.params, {"tokens": tokens})
+        tok, positions, embeds = self.model.prompt_inputs(self.params,
+                                                          batch)
         b, s = positions.shape
-        state = self.model.init_seq_state(self.params, s + gen,
+        state = self.model.init_seq_state(self.params, s + gen, batch=batch,
                                           batch_size=b, device=self.device)
         return self.model.forward(self.params, state, tok, positions,
                                   embeds=embeds, fresh=True)
 
     def serve(self, batch: dict, gen: int = 16):
-        """batch {"tokens": (b, s)}; returns (tokens (b, gen), info)."""
+        """batch: model-format prefill inputs ({"tokens": (b, s)}, and a
+        VLM's "patches" or Whisper's "frames"); returns (tokens (b, gen),
+        info)."""
         self._c_batches.inc()
         t0 = now()
         with span("batch_server.serve", impl=self.decode_impl, gen=gen):
@@ -270,17 +299,17 @@ class BatchServer:
         if self.decode_impl == "paged":
             return self._serve_paged(batch, gen)
         t0 = now()
-        tokens = self._tokens(batch)
-        tokens_np = tokens.cpu().numpy()
-        b, start = tokens.shape
+        host = {k: np.asarray(v) for k, v in batch.items()}
+        batch = self._on_device(host)
+        b = host["tokens"].shape[0]
+        start = self.model.prompt_length(batch)
         restored = None
         if self.ctx is not None:
-            restored = self.ctx.get(tokens_np,
-                                    self._template(b, start, gen))
+            restored = self.ctx.get(host, self._template(batch, gen))
         if restored is None:
-            state, logits = self._prefill_state(tokens, gen)
+            state, logits = self._prefill_state(batch, gen)
             if self.ctx is not None:
-                self.ctx.put(tokens_np, (state, logits))
+                self.ctx.put(host, (state, logits))
         else:
             state, logits = _tree_to(restored, self.device)
         state = grow_seq_state(state, start + gen)

@@ -52,6 +52,7 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, n, d, dtype, stride,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize(
     "sq,skv,kv_len,d,q_offset,kvh,layout",
     [(200, 200, 200, 128, None, 2, "bhsd"),
@@ -60,11 +61,18 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, n, d, dtype, stride,
      (64, 300, 250, 128, 100, 2, "bhsd"),      # q_offset > 0
      (129, 129, 129, 64, None, 2, "bhsd"),     # a ragged 64-row tile
      (200, 200, 200, 128, None, 6, "bhsd"),    # GQA group of 1
-     (300, 300, 280, 128, None, 2, "bshd")])   # the model's strides
+     (300, 300, 280, 128, None, 2, "bshd"),    # the model's strides
+     # whisper-base: the encoder's 1 500 frames (23 key tiles of 64 and
+     # one of 28), cross-attention from 448 decoder rows and from a
+     # decode tick's one row
+     (1500, 1500, 1500, 64, None, 6, "bshd"),
+     (448, 1500, 1500, 64, None, 6, "bshd"),
+     (1, 1500, 1500, 64, None, 6, "bshd")])
 def test_flash_kernel_matches_plain_on_card(cuda, sq, skv, kv_len, d,
-                                            q_offset, kvh, layout):
+                                            q_offset, kvh, layout, causal):
     """The forward kernel against the plain forward, in contiguous
-    (b, h, s, d) memory or as views over the model's (b, s, h, d)."""
+    (b, h, s, d) memory or as views over the model's (b, s, h, d),
+    causal or not."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     bf = torch.bfloat16
@@ -75,8 +83,9 @@ def test_flash_kernel_matches_plain_on_card(cuda, sq, skv, kv_len, d,
                                dtype=bf).transpose(1, 2)
         return torch.randn(2, heads, s, d, device=cuda, dtype=bf)
     q, k, v = t(sq, 6), t(skv, kvh), t(skv, kvh)
-    got = flash_attention(q, k, v, q_offset=q_offset, kv_len=kv_len)
-    ref = attention_ref(q, k, v, q_offset=q_offset, kv_len=kv_len)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    got = flash_attention(q, k, v, **kw)
+    ref = attention_ref(q, k, v, **kw)
     torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
 
@@ -242,7 +251,8 @@ def test_rmsnorm_backward_kernel_repeats_bitwise(cuda, n, d, stride):
     assert torch.equal(dx1, dx2) and torch.equal(dw1, dw2)
 
 
-def _flash_bwd_inputs(cuda, b, sq, skv, h, kvh, d, q_offset, kv_len):
+def _flash_bwd_inputs(cuda, b, sq, skv, h, kvh, d, q_offset, kv_len,
+                      causal=True):
     """q, k, v, do in the model's (b, s, h, d) memory, the plain
     forward's lse and delta = rowsum(o * do), and the mask keywords."""
     from repro_torch.kernels.flash_attention import attention_fwd_ref
@@ -252,7 +262,7 @@ def _flash_bwd_inputs(cuda, b, sq, skv, h, kvh, d, q_offset, kv_len):
         return torch.randn(b, s, heads, d, device=cuda,
                            dtype=bf).transpose(1, 2)
     q, k, v, do = t(sq, h), t(skv, kvh), t(skv, kvh), t(sq, h)
-    kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
     o, lse = attention_fwd_ref(q, k, v, **kw)
     delta = (o.float() * do.float()).sum(-1).contiguous()
     return (q, k, v, do, lse, delta), kw
@@ -276,6 +286,28 @@ def test_flash_backward_kernels_match_plain_on_card(cuda, sq, skv, q_offset,
         flash_attention_bwd_dkv, flash_attention_bwd_dq)
     args, kw = _flash_bwd_inputs(cuda, 2, sq, skv, h, kvh, d, q_offset,
                                  kv_len)
+    dk, dv = flash_attention_bwd_dkv(*args, **kw)
+    dq = flash_attention_bwd_dq(*args, **kw)
+    for got, ref in zip((dq, dk, dv), attention_bwd_ref(*args, **kw)):
+        torch.testing.assert_close(got.float(), ref, atol=2e-2, rtol=2e-2)
+    assert (dk[:, :, kv_len:] == 0).all() and (dv[:, :, kv_len:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,kv_len,h,kvh", [
+    (1500, 1500, 1500, 8, 8),      # whisper-base's encoder
+    (448, 1500, 1500, 8, 8),       # its cross-attention, training rows
+    (129, 200, 180, 6, 2)])        # ragged tiles, GQA, keys past kv_len
+def test_flash_backward_kernels_noncausal_on_card(cuda, sq, skv, kv_len, h,
+                                                  kvh):
+    """The non-causal dK/dV and dQ kernels (every query sees every key
+    below kv_len) against attention_bwd_ref, d 64, b 2; dK = dV = 0 past
+    kv_len."""
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    args, kw = _flash_bwd_inputs(cuda, 2, sq, skv, h, kvh, 64, None,
+                                 kv_len, causal=False)
     dk, dv = flash_attention_bwd_dkv(*args, **kw)
     dq = flash_attention_bwd_dq(*args, **kw)
     for got, ref in zip((dq, dk, dv), attention_bwd_ref(*args, **kw)):

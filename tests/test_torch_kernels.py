@@ -388,13 +388,15 @@ def test_chip_smoke_flash_faults_drop_exactly_their_work():
         np.testing.assert_allclose(g.numpy(), want, atol=TOL, rtol=TOL)
 
 
-def test_chip_smoke_flash_forward_faults_drop_exactly_their_work():
+@pytest.mark.parametrize("causal", [True, False])
+def test_chip_smoke_flash_forward_faults_drop_exactly_their_work(causal):
     """chip_smoke.py's planted faults of the flash forward kernel do what
-    they name and nothing else: "middle key tile skipped" is the forward
-    over the kept pairs minus the middle 64-key tile below kv_len; "rescale
-    dropped" adds each 64-key tile's exp(s - m) v with m the running max
-    after that tile and never rescales it, over the normaliser of all kept
-    pairs (against float64 numpy sums over exactly those pairs)."""
+    they name and nothing else, causal and not: "middle key tile
+    skipped" is the forward over the kept pairs minus the middle 64-key
+    tile below kv_len; "rescale dropped" adds each 64-key tile's exp(s -
+    m) v with m the running max after that tile and never rescales it,
+    over the normaliser of all kept pairs (against float64 numpy sums
+    over exactly those pairs)."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -403,13 +405,13 @@ def test_chip_smoke_flash_forward_faults_drop_exactly_their_work():
     q = _np((b, h, sq, d))
     k, v = _np((b, kvh, skv, d)), _np((b, kvh, skv, d))
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
-    kw = dict(kv_len=kv_len)
+    kw = dict(kv_len=kv_len, causal=causal)
     kk = np.repeat(k, h // kvh, axis=1).astype(np.float64)
     vv = np.repeat(v, h // kvh, axis=1).astype(np.float64)
     s = q.astype(np.float64) @ kk.swapaxes(-1, -2) * d ** -0.5
     qpos = (skv - sq) + np.arange(sq)[:, None]
     kpos = np.arange(skv)[None, :]
-    valid = (kpos <= qpos) & (kpos < kv_len)
+    valid = ((kpos <= qpos) | (not causal)) & (kpos < kv_len)
 
     def forward(keep):
         e = np.where(keep, np.exp(s - np.where(keep, s, -np.inf).max(

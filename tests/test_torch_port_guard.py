@@ -222,12 +222,24 @@ def test_entry_points_need_cuda_or_explicit_cpu(no_cuda):
                                     device="cpu"))
 
 
-def test_unported_families_raise():
+def test_every_family_builds_and_the_xlstm_slice_is_scanned():
+    """``build_model`` builds all six families of the JAX package on the
+    CPU (dense, MoE, hybrid, ssm, audio, vlm), and the import and source
+    scans reach ``models/xlstm.py``, whose source names neither jax nor
+    the JAX package."""
     from repro_torch.configs.registry import smoke_config
     from repro_torch.models import build_model
-    for arch in ("xlstm-125m", "whisper-base", "internvl2-76b"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(smoke_config(arch))
+    families = set()
+    for arch in ("phi4-mini-3.8b", "qwen2-moe-a2.7b", "zamba2-1.2b",
+                 "xlstm-125m", "whisper-base", "internvl2-76b"):
+        cfg = smoke_config(arch)
+        params = build_model(cfg).init(0, device="cpu")
+        assert params["embed"].device.type == "cpu"
+        families.add(cfg.family)
+    assert families == {"dense", "moe", "hybrid", "ssm", "audio", "vlm"}
+    assert "repro_torch.models.xlstm" in _port_modules()
+    src = (PORT / "models" / "xlstm.py").read_text()
+    assert not re.search(r"^\s*(from|import)\s+(jax|repro)\b", src, re.M)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8",

@@ -276,20 +276,20 @@ def test_grid_groups_follow_the_jax_mesh(monkeypatch):
 
 
 def test_pp_refuses_moe_and_other_families():
-    """``_check_pp_model``'s refusals: dense decoder-only LMs only (the
-    port builds no VLM: ``build_model`` refuses it first)."""
+    """``_check_pp_model``'s refusals: dense decoder-only LMs only, so
+    MoE, the hybrid, the VLM (a ``DecoderLM`` with patches: JAX's
+    ``is_vlm`` refusal), Whisper and xLSTM are refused."""
     from repro_torch.configs.registry import smoke_config
     from repro_torch.models import build_model
     from repro_torch.optim import AdamW
     from repro_torch.parallel import ParallelPlan
     from repro_torch.parallel.pp import PPStep
     plan = ParallelPlan(mode="pp")
-    for arch in ("qwen2-moe-a2.7b", "zamba2-1.2b"):
+    for arch in ("qwen2-moe-a2.7b", "zamba2-1.2b", "internvl2-76b",
+                 "whisper-base", "xlstm-125m"):
         with pytest.raises(ValueError, match="dense decoder-only"):
             PPStep(build_model(smoke_config(arch)), AdamW(), None, plan,
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(smoke_config("internvl2-76b"))
     with pytest.raises(ValueError, match="want 'pp'"):
         PPStep(build_model(smoke_config("phi4-mini-3.8b")), AdamW(), None,
                ParallelPlan(mode="ddp"), device="cpu")
